@@ -1,10 +1,9 @@
 #!/usr/bin/env python
-"""Calibrate achievable HBM bandwidth + assembly variants (real TPU).
+"""Calibrate achievable device-memory bandwidth + assembly variants.
 
 b0: y = 2x on (6, L, 128)   -> pure stream: 48 B/elem-col, calibrates BW
 b1: y(6) = f(x(6)) closed-form stiffness, XLA, fused divide
 b2: same but multiply by precomputed reciprocal-free form (no divide)
-b3: pallas 3D6 tile sweep
 """
 
 import json
@@ -14,11 +13,13 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "0"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 REPS = 20
 N_CELLS = 20_000_000
@@ -102,26 +103,6 @@ def main():
     print(json.dumps({"variant": "b2_xla6_nodiv", "ms": round(dt * 1e3, 3),
                       "G_elem_per_s": round(C / dt / 1e9, 3)}))
 
-    # b3: pallas 3D6 tile sweep
-    for S in (256, 512, 1024, 2048):
-        def call(c, S=S):
-            def _kernel(xy_ref, out_ref):
-                rows = stiffness_rows(xy_ref)
-                for r, v in enumerate(rows):
-                    out_ref[r] = v
-
-            return pl.pallas_call(
-                _kernel,
-                grid=(L // S,),
-                in_specs=[pl.BlockSpec((6, S, 128), lambda i: (0, i, 0))],
-                out_specs=pl.BlockSpec((6, S, 128), lambda i: (0, i, 0)),
-                out_shape=jax.ShapeDtypeStruct((6, L, 128), dtype),
-                interpret=jax.default_backend() != "tpu",
-            )(c)
-
-        dt = timeit(call, x)
-        print(json.dumps({"variant": f"b3_pallas_S{S}", "ms": round(dt * 1e3, 3),
-                          "G_elem_per_s": round(C / dt / 1e9, 3)}))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""CG iteration variants on the 10M-dof 2D grid stencil (real TPU).
+"""CG iteration variants on the 10M-dof 2D grid stencil.
 
 Variants:
   cg0_7 : current bench body (per-iter jnp.pad + dynamic_slice, 7 layers)
@@ -21,9 +21,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "0"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 from fdapde_core_tpu.ops.grid_dia import GridDIAMatrix

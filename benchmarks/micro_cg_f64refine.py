@@ -3,7 +3,7 @@
 
 At 10M dofs kappa ~ 4e6, so f32 CG's attainable true residual is O(eps32 *
 kappa) ~ 0.2 relative — converging for real requires f64 somewhere. Pure
-f64 CG pays emulated-f64 bandwidth/ALU every iteration; refinement pays it
+f64 CG pays f64 bandwidth every iteration; refinement pays it
 once per outer cycle (1 f64 SpMV per ~hundreds of f32 inner iterations).
 """
 
@@ -14,9 +14,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "1"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp

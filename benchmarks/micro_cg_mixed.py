@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Mixed-precision CG: time-to-residual vs pure f32 (10M dofs, real TPU).
+"""Mixed-precision CG: time-to-residual vs pure f32 (10M dofs).
 
 f32 CG runs until rz-based rtol; the mixed scheme runs bf16-vector inner CG
 cycles (f32 dot accumulation) inside an f32 refinement loop. Compared on
@@ -14,9 +14,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "0"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 n = 3163

@@ -20,6 +20,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "1"  # f64 fine op for the converged stage
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 from fdapde_core_tpu.fem.solvers import DirichletSystem

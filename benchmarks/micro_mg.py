@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Multigrid-preconditioned CG at 10.2M dofs on the real TPU.
+"""Multigrid-preconditioned CG at 10.2M dofs.
 
 n = 3200 (m = 3201 nodes/side): coarsens 3200 -> 1600 -> ... -> 50.
 Variants: f32 MG-CG (floored by eps32*kappa in TRUE residual), f64 MG-CG
-(emulated f64, ~10 iters), f64-outer refinement with f32 MG-CG inner.
+(~10 iters), f64-outer refinement with f32 MG-CG inner.
 """
 
 import json
@@ -13,9 +13,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "1"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""MG-preconditioned CG, f32 vs bf16 stencil STORAGE (10M dofs, real TPU).
+"""MG-preconditioned CG, f32 vs bf16 stencil STORAGE (10M dofs).
 
 Vector arithmetic stays f32 in both; the bf16 variant streams every stencil
 layer (fine CG operator + all V-cycle levels) at half the bytes, converts
@@ -14,9 +14,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "0"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 from fdapde_core_tpu.ops.grid_dia import GridDIAMatrix, prune_zero_offsets_grid

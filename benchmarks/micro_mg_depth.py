@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Where does the MG-CG iteration time go? (10M dofs, real TPU)
+"""Where does the MG-CG iteration time go? (10M dofs)
 
-Traffic says ~4 ms/iter; measured ~39 ms/iter. Suspect: the deep-hierarchy
-tail — tiny levels + a 64-step sequential coarse CG are latency-bound, not
-bandwidth-bound. Sweep (coarse_n, coarse_iters, nu) at fixed convergence
+Suspect: the deep-hierarchy tail — tiny levels + a 64-step sequential
+coarse CG are latency-bound, not bandwidth-bound. Sweep (coarse_n, coarse_iters, nu) at fixed convergence
 target and report s/iter + iters.
 """
 
@@ -14,9 +13,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["FDAPDE_TPU_X64"] = "0"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/fdapde_jax_cache")
 
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 from fdapde_core_tpu.ops.grid_dia import GridDIAMatrix

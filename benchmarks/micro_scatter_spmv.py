@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Micro-benchmark: SpMV formulations for SCATTERED-banded topologies.
 
-The round-3 hole (VERDICT missing #1): meshes whose RCM histogram is
-spread across the band are rejected by plan_split_width and fall back to
-raw ELL gathers — 1.31 CG iters/s at 10.25M dofs (~121M gathered elem/s).
-This probes, on the real chip, every plausible route to a faster gather:
+Meshes whose RCM histogram is spread across the band are rejected by
+plan_split_width and fall back to raw ELL gathers. This probes, on the
+accelerator, every plausible route to a faster gather:
 
   A. ell_flat    one (K, n) gather + weighted sum (current ELLSoA path,
                  single fused program)
@@ -15,9 +14,6 @@ This probes, on the real chip, every plausible route to a faster gather:
   D. sorted      rate probe: globally sorted indices (locality best-case,
                  not a valid SpMV)
   E. random      rate probe: uniform random indices (locality worst-case)
-  F. pallas dynamic_gather probe: is tpu.dynamic_gather available via
-     jnp.take_along_axis inside a kernel, and at what rate (operand
-     (S, 128) f32, same-shape indices, axis 0 then axis 1)
 
 Synthetic scattered-banded matrix at n = 3201^2 = 10.25M, K = 9:
 cols[k, i] = clip(i + delta, 0, n-1), delta = hash(k, i) in [-B, B],
@@ -27,10 +23,17 @@ exactly the class plan_split_width rejects.
 Usage: python benchmarks/micro_scatter_spmv.py [--small]
 """
 
+import os
 import sys
 import time
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
 import jax
+
+from fdapde_core_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 SMALL = "--small" in sys.argv
@@ -185,203 +188,6 @@ def main():
         print(f"{name}: {t*1e3:8.2f} ms/SpMV  {gel:7.2f} G gathered elem/s",
               flush=True)
 
-    # F: pallas dynamic_gather availability + rate
-    try:
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        S = 512
-        PR = 64  # gather reps inside the kernel
-
-        def kern0(x_ref, idx_ref, o_ref):
-            g = x_ref[:]
-            for _ in range(PR):
-                g = jnp.take_along_axis(g, idx_ref[:], axis=0)
-            o_ref[:] = g
-
-        def kern1(x_ref, idx_ref, o_ref):
-            g = x_ref[:]
-            for _ in range(PR):
-                g = jnp.take_along_axis(g, idx_ref[:], axis=1)
-            o_ref[:] = g
-
-        xt = jnp.arange(S * 128, dtype=jnp.float32).reshape(S, 128)
-        for axis, kern in ((0, kern0), (1, kern1)):
-            bound = S if axis == 0 else 128
-            it = (jnp.arange(S * 128, dtype=jnp.int32).reshape(S, 128)
-                  * 7919 % bound).astype(jnp.int32)
-            try:
-                f = jax.jit(lambda x_, i_: pl.pallas_call(
-                    kern,
-                    out_shape=jax.ShapeDtypeStruct((S, 128), jnp.float32),
-                    in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-                    out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-                )(x_, i_))
-                r = f(xt, it)
-                # correctness single-step
-                def kern_once(x_ref, idx_ref, o_ref, *, ax=axis):
-                    o_ref[:] = jnp.take_along_axis(x_ref[:], idx_ref[:],
-                                                   axis=ax)
-                f1 = jax.jit(lambda x_, i_: pl.pallas_call(
-                    kern_once,
-                    out_shape=jax.ShapeDtypeStruct((S, 128), jnp.float32),
-                    in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-                    out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-                )(x_, i_))
-                import numpy as np
-                got = np.asarray(f1(xt, it))
-                ref = np.asarray(jnp.take_along_axis(xt, it, axis=axis))
-                okc = bool((got == ref).all())
-                float(jnp.sum(f(xt, it)))
-                t0 = time.time()
-                for _ in range(4):
-                    float(jnp.sum(f(xt, it)))
-                dt = (time.time() - t0) / 4 - fence_s
-                rate = PR * S * 128 / max(dt, 1e-6) / 1e9
-                print(f"F_pallas_axis{axis}: OK correct={okc} "
-                      f"{rate:.2f} G elem/s (S={S}, {PR} chained)",
-                      flush=True)
-            except Exception as e:
-                print(f"F_pallas_axis{axis}: UNSUPPORTED "
-                      f"{type(e).__name__}: {str(e)[:200]}", flush=True)
-
-        # F2: realistic-shape probes for the two-stage gather design:
-        #   (a) chained lane-gathers on a (4096, 128) tile (HBM-resident
-        #       block pipeling not included: pure VPU rate)
-        #   (b) lane-gather + transpose + lane-gather round trip
-        #   (c) lane-gather with operand lane-width 256 (is >128 legal?)
-        S2 = 4096
-        xt2 = jnp.arange(S2 * 128, dtype=jnp.float32).reshape(S2, 128)
-        it2 = (jnp.arange(S2 * 128, dtype=jnp.int32).reshape(S2, 128)
-               * 7919 % 128)
-        PR2 = 32
-
-        def kern_a(x_ref, idx_ref, o_ref):
-            g = x_ref[:]
-            for _ in range(PR2):
-                g = jnp.take_along_axis(g, idx_ref[:], axis=1)
-            o_ref[:] = g
-
-        try:
-            fa = jax.jit(lambda x_, i_: pl.pallas_call(
-                kern_a,
-                out_shape=jax.ShapeDtypeStruct((S2, 128), jnp.float32),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )(x_, i_))
-            float(jnp.sum(fa(xt2, it2)))
-            t0 = time.time()
-            for _ in range(4):
-                float(jnp.sum(fa(xt2, it2)))
-            dt = (time.time() - t0) / 4 - fence_s
-            print(f"F2a_lane_gather_4096x128: "
-                  f"{PR2 * S2 * 128 / max(dt, 1e-6) / 1e9:.2f} G elem/s",
-                  flush=True)
-        except Exception as e:
-            print(f"F2a: FAIL {type(e).__name__}: {str(e)[:150]}",
-                  flush=True)
-
-        # (b) the full 2-stage primitive on a (128, 128) tile:
-        #     lane-gather -> transpose -> lane-gather -> transpose
-        #     (= one arbitrary 2D gather, conflict-free schedule assumed)
-        def kern_b(x_ref, i1_ref, i2_ref, o_ref):
-            g = x_ref[:]
-            for _ in range(PR2):
-                a = jnp.take_along_axis(g, i1_ref[:], axis=1)
-                t = a.T
-                bq = jnp.take_along_axis(t, i2_ref[:], axis=1)
-                g = bq.T
-            o_ref[:] = g
-
-        try:
-            x1 = jnp.arange(128 * 128, dtype=jnp.float32).reshape(128, 128)
-            i1 = (jnp.arange(128 * 128, dtype=jnp.int32).reshape(128, 128)
-                  * 7919 % 128)
-            i2 = (jnp.arange(128 * 128, dtype=jnp.int32).reshape(128, 128)
-                  * 104729 % 128)
-            fb = jax.jit(lambda x_, a_, b_: pl.pallas_call(
-                kern_b,
-                out_shape=jax.ShapeDtypeStruct((128, 128), jnp.float32),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )(x_, a_, b_))
-            float(jnp.sum(fb(x1, i1, i2)))
-            t0 = time.time()
-            for _ in range(8):
-                float(jnp.sum(fb(x1, i1, i2)))
-            dt = (time.time() - t0) / 8 - fence_s
-            print(f"F2b_2stage_128tile: "
-                  f"{PR2 * 128 * 128 / max(dt, 1e-6) / 1e9:.2f} "
-                  f"G 2d-gathered elem/s", flush=True)
-        except Exception as e:
-            print(f"F2b: FAIL {type(e).__name__}: {str(e)[:150]}",
-                  flush=True)
-
-        # (c) lane width 256 operand
-        try:
-            xw = jnp.arange(512 * 256, dtype=jnp.float32).reshape(512, 256)
-            iw = (jnp.arange(512 * 256, dtype=jnp.int32).reshape(512, 256)
-                  * 7919 % 256)
-
-            def kern_c(x_ref, idx_ref, o_ref):
-                o_ref[:] = jnp.take_along_axis(x_ref[:], idx_ref[:], axis=1)
-
-            fc = jax.jit(lambda x_, i_: pl.pallas_call(
-                kern_c,
-                out_shape=jax.ShapeDtypeStruct((512, 256), jnp.float32),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )(x_, i_))
-            import numpy as np
-            got = np.asarray(fc(xw, iw))
-            ref = np.asarray(jnp.take_along_axis(xw, iw, axis=1))
-            print(f"F2c_lane256: OK correct={bool((got == ref).all())}",
-                  flush=True)
-        except Exception as e:
-            print(f"F2c_lane256: FAIL {type(e).__name__}: {str(e)[:150]}",
-                  flush=True)
-
-        # (d) MXU one-hot sublane-select rate: Q (128, 448) one-hot rows
-        #     built in-kernel from an int row-index vector, times W
-        #     (448, 128) -> (128, 128) selected rows
-        try:
-            SW = 448
-
-            def kern_d(w_ref, q_ref, o_ref):
-                acc = jnp.zeros((128, 128), jnp.float32)
-                for _ in range(8):
-                    qi = q_ref[:]  # (128, 128) int32, use col 0 semantics
-                    sel = (qi[:, :1] ==
-                           jax.lax.broadcasted_iota(
-                               jnp.int32, (128, SW), 1)).astype(jnp.float32)
-                    acc = acc + jnp.dot(
-                        sel, w_ref[:],
-                        preferred_element_type=jnp.float32)
-                o_ref[:] = acc
-
-            wv = jnp.arange(SW * 128, dtype=jnp.float32).reshape(SW, 128)
-            qv = (jnp.arange(128 * 128, dtype=jnp.int32).reshape(128, 128)
-                  * 7919 % SW)
-            fd = jax.jit(lambda w_, q_: pl.pallas_call(
-                kern_d,
-                out_shape=jax.ShapeDtypeStruct((128, 128), jnp.float32),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )(w_, q_))
-            float(jnp.sum(fd(wv, qv)))
-            t0 = time.time()
-            for _ in range(4):
-                float(jnp.sum(fd(wv, qv)))
-            dt = (time.time() - t0) / 4 - fence_s
-            # 8 selects of 128 rows each = 1024 row-selections of 128 vals
-            print(f"F2d_mxu_onehot_select: "
-                  f"{8 * 128 * 128 / max(dt, 1e-6) / 1e9:.3f} "
-                  f"G selected elem/s", flush=True)
-        except Exception as e:
-            print(f"F2d: FAIL {type(e).__name__}: {str(e)[:150]}",
-                  flush=True)
-    except Exception as e:
-        print(f"F_pallas: import failed {e}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
-"""fdapde-core-tpu: TPU-native framework for physics-informed spatial and
+"""fdapde-core: a JAX framework for physics-informed spatial and
 functional data analysis.
 
-A brand-new JAX/XLA/Pallas re-design of the capabilities of fdaPDE-core
-(reference: /root/reference, C++20 header-only, Eigen-based):
+A JAX/XLA re-design of the capabilities of fdaPDE-core (the reference:
+C++20 header-only, Eigen-based):
 
 - finite-element solvers for second-order linear elliptic and parabolic BVPs on
   1D/1.5D/2D/2.5D/3D simplicial meshes,
@@ -13,15 +13,15 @@ A brand-new JAX/XLA/Pallas re-design of the capabilities of fdaPDE-core
 - supporting linear algebra (Kronecker, sparse blocks, SMW, lumping, SPAI).
 
 Architecture: meshes are struct-of-arrays, assembly is a batched quadrature
-contraction over element blocks (einsum / Pallas), global matrices are COO/CSR
+contraction over element blocks (einsum), global matrices are COO/CSR
 with segment-sum scatter-add, linear solves are matrix-free preconditioned
 Krylov iterations under `jax.jit`, multi-chip scaling uses `jax.sharding.Mesh`
 + `shard_map` with `psum`/halo collectives.
 
 Precision: by default the package enables JAX x64 so that reference-parity
-tests (f64 tolerances, see /root/reference/test/src/fem_pde_test.cpp) pass.
+tests (f64 tolerances, see the reference's test/src/fem_pde_test.cpp) pass.
 Set the environment variable FDAPDE_TPU_X64=0 *before* importing to keep f32
-(the fast TPU path used by benchmarks).
+(the benchmark's structured group does).
 """
 
 import os as _os

@@ -1,8 +1,8 @@
 """Finite-element discretization: Lagrange bases, assembly, solvers.
 
-TPU-native counterpart of `fdaPDE/finite_elements/`. The reference's serial
+JAX counterpart of `fdaPDE/finite_elements/`. The reference's serial
 per-cell assembly loop (fem_assembler.h:79-110) becomes a batched quadrature
-contraction over all cells at once (einsum -> MXU) followed by a segment-sum
+contraction over all cells at once (einsum) followed by a segment-sum
 scatter-add into sorted COO (the `setFromTriplets` equivalent); the SparseLU
 solve becomes matrix-free preconditioned CG/BiCGStab.
 """

@@ -1,13 +1,12 @@
 """Batched FEM assembly: quadrature contraction + segment-sum scatter.
 
-The TPU-native replacement of the reference's serial triple loop
-(/root/reference/fdaPDE/finite_elements/fem_assembler.h:79-110, innermost
-quadrature loop integrator.h:93-106). All cells are processed at once:
+The batched replacement of the reference's serial triple loop
+(fdaPDE/finite_elements/fem_assembler.h:79-110, innermost quadrature loop
+integrator.h:93-106). All cells are processed at once:
 
     local[c,i,j] = measure[c] * sum_q w[q] * weak_form(c, q, i, j)
 
-as einsum contractions (XLA fuses these and maps the contractions to the
-MXU), followed by one `segment_sum` into the precomputed sorted-COO slots
+as einsum contractions (XLA fuses these), followed by one `segment_sum` into the precomputed sorted-COO slots
 (the `setFromTriplets` scatter-add of fem_assembler.h:112).
 
 Weak forms implemented (signs match the reference operator headers):
@@ -30,6 +29,10 @@ import numpy as np
 from ..geometry.affine import affine_maps
 from ..linear_algebra.sparse import SparseMatrix
 from ..pde.operators import Advection, BiLaplacian, Diffusion, Dt, Laplacian, Reaction
+
+# operators are built in full precision: an f32 contraction must not run
+# in a reduced-precision matmul mode (e.g. TF32 on NVIDIA tensor cores)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = ["assemble_matrix", "assemble_forcing", "local_matrices", "prepare_coefficient"]
 
@@ -76,24 +79,30 @@ def local_matrices(term_kind, coeff, varying, phi, grad, w, invJ, measure):
     """Local (C, nb, nb) matrices for one operator term. Pure JAX, jit-safe."""
     # physical gradients: pg[c,q,i,n] = sum_m invJ[c,m,n] * grad[q,i,m]
     if term_kind in ("laplacian", "diffusion", "advection"):
-        pg = jnp.einsum("cmn,qim->cqin", invJ, grad)
+        pg = jnp.einsum("cmn,qim->cqin", invJ, grad, precision=_HIGHEST)
     if term_kind == "laplacian":
-        out = -jnp.einsum("cqin,cqjn,q->cij", pg, pg, w)
+        out = -jnp.einsum("cqin,cqjn,q->cij", pg, pg, w, precision=_HIGHEST)
     elif term_kind == "diffusion":
         if varying:
-            out = -jnp.einsum("cqin,cqnk,cqjk,q->cij", pg, coeff, pg, w)
+            out = -jnp.einsum("cqin,cqnk,cqjk,q->cij", pg, coeff, pg, w,
+                              precision=_HIGHEST)
         else:
-            out = -jnp.einsum("cqin,nk,cqjk,q->cij", pg, coeff, pg, w)
+            out = -jnp.einsum("cqin,nk,cqjk,q->cij", pg, coeff, pg, w,
+                              precision=_HIGHEST)
     elif term_kind == "advection":
         if varying:
-            out = jnp.einsum("qi,cqjn,cqn,q->cij", phi, pg, coeff, w)
+            out = jnp.einsum("qi,cqjn,cqn,q->cij", phi, pg, coeff, w,
+                             precision=_HIGHEST)
         else:
-            out = jnp.einsum("qi,cqjn,n,q->cij", phi, pg, coeff, w)
+            out = jnp.einsum("qi,cqjn,n,q->cij", phi, pg, coeff, w,
+                             precision=_HIGHEST)
     elif term_kind == "reaction":
         if varying:
-            out = jnp.einsum("cq,qi,qj,q->cij", coeff, phi, phi, w)
+            out = jnp.einsum("cq,qi,qj,q->cij", coeff, phi, phi, w,
+                             precision=_HIGHEST)
         else:
-            out = coeff * jnp.einsum("qi,qj,q->ij", phi, phi, w)[None, :, :]
+            out = coeff * jnp.einsum("qi,qj,q->ij", phi, phi, w,
+                                     precision=_HIGHEST)[None, :, :]
             return out * measure[:, None, None]
     else:
         raise ValueError(term_kind)
@@ -114,8 +123,8 @@ def assemble_matrix(space, op, layout: str = "aos") -> SparseMatrix:
     Counterpart of Assembler::discretize_operator (fem_assembler.h:52-120).
 
     layout="soa" routes through the cell-axis-last path (ops/soa_assembly.py)
-    — required on TPU beyond ~1M cells, where (C, nq, nb, N) intermediates
-    tile-pad ~50x in HBM.
+    — for meshes beyond ~1M cells, where (C, nq, nb, N) intermediates put
+    tiny axes minor-most.
     """
     if layout == "soa":
         from ..ops.soa_assembly import assemble_soa_values
@@ -163,7 +172,7 @@ def assemble_matrix(space, op, layout: str = "aos") -> SparseMatrix:
 def assemble_dia(space, op):
     """Discretize into DIA (offset-diagonal) storage.
 
-    TPU fast path: SpMV becomes static shifts + fused multiply-adds
+    Fast path: SpMV becomes static shifts + fused multiply-adds
     (linear_algebra/dia.py). Efficient when the dof numbering yields a small
     offset set (structured or strongly banded meshes — check
     `len(unique_offsets(space.dofs))` first; RCM/SFC reordering shrinks it).
@@ -206,10 +215,12 @@ def assemble_forcing(space, f) -> jnp.ndarray:
     _, _, measure = affine_maps(nodes, cells)
 
     if multi:
-        loc = jnp.einsum("cqt,qi,q->cit", fv, phi, w) * measure[:, None, None]
+        loc = jnp.einsum("cqt,qi,q->cit", fv, phi, w,
+                         precision=_HIGHEST) * measure[:, None, None]
         flat = loc.reshape(C * space.n_basis_per_cell, -1)
     else:
-        loc = jnp.einsum("cq,qi,q->ci", fv, phi, w) * measure[:, None]
+        loc = jnp.einsum("cq,qi,q->ci", fv, phi, w,
+                         precision=_HIGHEST) * measure[:, None]
         flat = loc.reshape(-1)
     seg = jnp.asarray(space.dofs.reshape(-1))
     return jax.ops.segment_sum(flat, seg, space.n_dofs)

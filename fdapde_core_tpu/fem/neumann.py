@@ -2,7 +2,7 @@
 
 The reference core supports Dirichlet conditions only (row surgery,
 fem_solver_base.h:142-155); mixed Dirichlet/Neumann problems are a target
-configuration of the TPU build (BASELINE.json configs). The weak form picks
+configuration of this build. The weak form picks
 up the boundary integral
 
     F_i += int_{Gamma_N} h psi_i ds

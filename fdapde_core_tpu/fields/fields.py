@@ -174,7 +174,7 @@ class DiscretizedField:
     vector_expressions.h:103, matrix_expressions.h:191): the reference
     smuggles the quadrature index through a `forward(i)` side-channel so
     expression templates can read tabulated coefficient values during
-    assembly. In the TPU build the assembler consumes such fields directly
+    assembly. Here the assembler consumes such fields directly
     as arrays shaped (n_cells * n_quad, ...) — this wrapper only carries the
     array plus its value rank for validation and API parity
     (pde/operators.py coefficient protocol).

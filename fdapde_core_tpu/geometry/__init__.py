@@ -1,6 +1,6 @@
 """Mesh geometry: triangulations, point location, search trees, projections.
 
-TPU-native counterpart of the reference `fdaPDE/geometry/` layer. Meshes are
+JAX counterpart of the reference `fdaPDE/geometry/` layer. Meshes are
 struct-of-arrays (nodes f64[n,N], cells i32[C,M+1], boolean boundary markers)
 instead of per-cell view objects; per-cell quantities (affine maps J, invJ,
 measures) are computed as batched device arrays by `affine_maps`.

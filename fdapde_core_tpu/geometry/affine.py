@@ -26,8 +26,8 @@ __all__ = ["affine_maps", "affine_maps_np"]
 def _det_small(xp, A):
     """Batched determinant of (C, k, k) for k in {1,2,3}, closed form.
 
-    TPU note: generic `linalg.det`/`inv` lower to LU decomposition, which is
-    f32-only on TPU and serial; cofactor formulas are fused elementwise ops.
+    Generic `linalg.det`/`inv` lower to a serial LU decomposition per
+    matrix; cofactor formulas are fused elementwise ops.
     """
     k = A.shape[-1]
     if k == 1:

@@ -14,7 +14,7 @@ __all__ = ["KDTree"]
 
 
 class KDTree:
-    """Static KD-tree. Nodes stored in preorder arrays (TPU-friendly layout)."""
+    """Static KD-tree. Nodes stored in preorder arrays (flat arrays, vectorized queries)."""
 
     def __init__(self, points: np.ndarray):
         self.points = np.asarray(points, dtype=np.float64)

@@ -4,8 +4,8 @@ Replaces the reference's pointer-chasing ADT search
 (/root/reference/fdaPDE/geometry/tree_search.h) and barycentric walk
 (walk_search.h) with a uniform-grid candidate filter + exact vectorized
 barycentric `contains` test (semantics of simplex.h:115-127, including the
-manifold supporting-plane distance check). The grid maps directly onto TPU
-gather patterns for a future device implementation; here it runs host-side as
+manifold supporting-plane distance check). The grid maps directly onto
+gather patterns for a device implementation; here it runs host-side as
 mesh preprocessing.
 """
 

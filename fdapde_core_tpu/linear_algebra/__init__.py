@@ -1,6 +1,6 @@
 """Linear algebra: sparse operators, Krylov solvers, structured matrices.
 
-TPU-native counterpart of `fdaPDE/linear_algebra/`. Eigen sparse storage +
+JAX counterpart of `fdaPDE/linear_algebra/`. Eigen sparse storage +
 SparseLU factorizations are replaced by:
 
 - `SparseMatrix`: sorted-COO/CSR hybrid container as a JAX pytree; SpMV is a

@@ -8,7 +8,7 @@ SA-AMG closes that for arbitrary simplicial meshes: an SPD V-cycle
 preconditioner built from the assembled matrix alone — no geometry needed —
 giving O(1) preconditioned-CG iteration counts under h-refinement.
 
-Split of labor (TPU-first):
+Split of labor (accelerator-first):
 - SETUP runs on host (NumPy/SciPy): strength graph, Luby-style maximal-
   independent-set aggregation (vectorized rounds, no per-node Python loop),
   Jacobi-smoothed tentative prolongator, Galerkin RAP, dense inverse of the
@@ -334,7 +334,8 @@ class AMG:
 
     def _v(self, lvl, b):
         if lvl == len(self.As):
-            return self.coarse_inv @ b
+            return jnp.matmul(self.coarse_inv, b,
+                              precision=jax.lax.Precision.HIGHEST)
         x = self._smooth(lvl, jnp.zeros_like(b), b)
         r = b - self.As[lvl] @ x
         e = self._v(lvl + 1, self.Rs[lvl] @ r)

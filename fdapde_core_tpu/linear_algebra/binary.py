@@ -2,7 +2,7 @@
 
 Counterpart of /root/reference/fdaPDE/linear_algebra/binary_matrix.h:32-667.
 The reference bit-packs into uintmax_t words with an expression-template
-layer; on TPU, XLA's native i1/int8 mask vectors make packing a pessimization
+layer; XLA's native i1/int8 mask vectors make packing a pessimization
 (masks fuse into `select` ops directly), so `BinaryMatrix` is a thin wrapper
 over a boolean ndarray providing the reference's API surface: logical ops,
 blocks, repeat/reshape, visitors (all/any/count), and `select` masking of

@@ -1,7 +1,7 @@
 """DIA (offset-diagonal) sparse format: SpMV as shifts + multiply-adds.
 
-TPU rationale: generic gathers/scatters execute near-scalar speed on the
-VPU, but *static shifts* of a vector are free layout moves. A matrix whose
+Rationale: a generic gather SpMV reads an index per entry, while *static
+shifts* of a vector need no index arrays at all. A matrix whose
 nonzero (col - row) offsets form a small static set — banded systems, and
 any FEM matrix on a (block-)structured or well-ordered mesh — supports
 

@@ -2,11 +2,11 @@
 
 Counterpart of /root/reference/fdaPDE/linear_algebra/kronecker_product.h
 (Eigen expression-template Kronecker, dense x dense and sparse x sparse).
-The TPU-idiomatic form for space-time problems is the *matrix-free* identity
+The accelerator-idiomatic form for space-time problems is the *matrix-free* identity
 
     (A (x) B) vec(X) = vec(B X A^T)
 
-which turns the Kronecker matvec into two batched matmuls (MXU-friendly),
+which turns the Kronecker matvec into two batched matmuls (matrix-unit friendly),
 never materializing the n_a*n_b square operator.
 """
 

@@ -2,7 +2,7 @@
 
 Counterpart of /root/reference/fdaPDE/linear_algebra/lumping.h:30-51: replace
 a (mass) matrix by the diagonal of its row sums. Returns the diagonal as a
-vector — the TPU-native representation of a diagonal operator (elementwise
+vector — the natural device representation of a diagonal operator (elementwise
 multiply instead of SpMV).
 """
 

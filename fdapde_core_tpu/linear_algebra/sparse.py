@@ -1,8 +1,8 @@
 """Sparse matrices as JAX pytrees with scatter-add SpMV.
 
-The TPU replacement for Eigen's `SpMatrix` (utils/symbols.h:33): entries are
+The device replacement for Eigen's `SpMatrix` (utils/symbols.h:33): entries are
 stored in (row, col)-sorted COO order with static shape; products are a
-gather (`x[cols]`) followed by `segment_sum` — both XLA-native on TPU. The
+gather (`x[cols]`) followed by `segment_sum` — both XLA-native. The
 structure (rows/cols) is typically precomputed host-side once per mesh and
 reused across assemblies, so only `vals` changes under jit.
 """
@@ -22,7 +22,7 @@ def coo_sum_duplicates(rows, cols, n_rows, n_cols):
     """Host-side: dedupe & sort (row, col) pairs.
 
     Returns (rows_u, cols_u, inverse) with inverse mapping each input entry to
-    its slot — the TPU analogue of Eigen `setFromTriplets` scatter-add
+    its slot — the device analogue of Eigen `setFromTriplets` scatter-add
     semantics (fem_assembler.h:99-112): values are later combined with
     `segment_sum(vals, inverse, nnz)`.
     """

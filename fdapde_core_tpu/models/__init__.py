@@ -2,16 +2,15 @@
 
 The reference's user-facing surface is the PDE descriptor plus its solver
 selection (pde/pde.h + finite_elements/solvers/ + splines/solvers/); this
-package collects the corresponding ready-to-use drivers of the TPU build:
+package collects the corresponding ready-to-use entry points of this build:
 
 - `PDE` (re-export): elliptic / parabolic, FEM / SPLINE,
 - `solve_semilinear`: Newton outer loop for semilinear problems,
 - `SeparableOperator` / `solve_space_time`: Kronecker-structured space-time
   systems (spline-in-time x FEM-in-space), solved matrix-free,
 - `ShardedPoisson` (re-export): the multi-chip pipeline,
-- `StructuredPoisson`: the structured-grid fast path (edge-vector Pallas
-  assembly -> scatter-free stencil -> multigrid CG, optional f64
-  refinement).
+- `StructuredPoisson`: the structured-grid fast path (coords->stencil
+  assembly -> multigrid CG with f64 Krylov vectors).
 """
 
 from ..fem.nonlinear import solve_semilinear

@@ -6,7 +6,7 @@ models combine into penalties like  R = T1 (x) S0 + T0 (x) S1  (spline
 penalty in time, FEM matrices in space). Materializing n_t*n_s square
 matrices is hostile to accelerators; here the operator stays a sum of
 Kronecker factors and every matvec is two batched matmuls per term
-(vec identity: (A (x) B) vec(X) = vec(B X A^T)) — MXU-shaped.
+(vec identity: (A (x) B) vec(X) = vec(B X A^T)) — matmul-shaped.
 """
 
 from __future__ import annotations
@@ -72,9 +72,10 @@ class SeparableOperator:
         out = None
         for T, S in self.terms:
             SX = _apply_space_batch(S, X)
-            # HIGHEST: TPU f32 matmuls default to bf16 passes — a ~3-digit
+            # HIGHEST: an f32 matmul may otherwise run in a reduced-
+            # precision mode (TF32 on NVIDIA tensor cores) — a ~3-digit
             # perturbation of the time factor stalls tight-tolerance Krylov
-            # iterations at scale (measured: 5 iters CPU vs 60+ on chip)
+            # iterations at scale
             y = (T @ SX) if isinstance(T, SparseMatrix) else jnp.matmul(
                 jnp.asarray(T), SX, precision=jax.lax.Precision.HIGHEST
             )
@@ -112,7 +113,7 @@ class ModeDiagPreconditioner:
     decouples time; replacing S0/S1 by their DIAGONALS gives the SPD
     approximation  M^{-1} r = (Z (x) I) D^{-1} (Z^T (x) I) r  with
     D_t = lam_t diag(S0) + diag(S1) — two small time matmuls plus an
-    elementwise scale per application, MXU-shaped. This is what makes an
+    elementwise scale per application, matmul-shaped. This is what makes an
     f32 Krylov iteration on the ill-conditioned space-time sum actually
     REDUCE the residual (unpreconditioned f32 CG diverges at
     kappa ~ 1e6+); the exact per-mode solve is solve_space_time_fdm.
@@ -196,8 +197,7 @@ class ModeMGPreconditioner:
         lamj = jnp.asarray(lam, dtype)
 
         # static level plan (GridMG.build's rule), then ONE jitted program
-        # for both Galerkin chains + the per-mode AXPY — separate programs
-        # each pay the remote-compile roulette on the TPU harness
+        # for both Galerkin chains + the per-mode AXPY
         shapes = [S1.shape2d[0]]
         offsets = [S1.offsets2d]
         while True:
@@ -317,7 +317,7 @@ class SpaceTimeSmoothing:
         [(Phi^T Phi) (x) (Psi^T Psi) + lam_s Mt (x) As + lam_t Pt (x) Ms] c
             = vec(Phi^T Y Psi)
 
-    — solved matrix-free (every matvec is a few small matmuls, MXU-shaped).
+    — solved matrix-free (every matvec is a few small matmuls, matmul-shaped).
     """
 
     def __init__(self, mesh, time_interval, fem_order=1, spline_order=3):
@@ -388,11 +388,11 @@ def solve_space_time_fdm(T0, T1, S0, S1, b, rtol: float = 1e-10,
     the (lam_t, rhs_t) pairs with ZERO per-iteration communication (the
     small time transforms run replicated). This is the scaling story the
     coupled Kronecker CG (parallel/space_time.ShardedSpaceTime) cannot
-    match: no halo exchange at all. The transforms are two (n_t, n_t) matmuls — MXU work; the
-    space solves are the same SpMV streams as the elliptic path, so the
-    Kronecker structure costs NOTHING beyond n_t elliptic solves. TPU-native
-    replacement of factorizing the materialized Kronecker sum (reference
-    building block: kronecker_product.h:27-80).
+    match: no halo exchange at all. The transforms are two (n_t, n_t)
+    matmuls; the space solves are the same SpMV streams as the elliptic
+    path, so the Kronecker structure costs NOTHING beyond n_t elliptic
+    solves. Accelerator replacement of factorizing the materialized
+    Kronecker sum (reference building block: kronecker_product.h:27-80).
 
     Requirements: T0 SPD, T1 symmetric PSD (numpy dense, n_t small);
     S0 SPD, S1 symmetric PSD with S1 + lam_min*S0 SPD (the usual

@@ -1,25 +1,25 @@
-"""Structured-grid Poisson fast path: the full speed-of-light pipeline.
+"""Structured-grid Poisson fast path: the full structured pipeline.
 
 For tensor-product meshes (geometry/structured.py connectivity) this driver
 composes every structured-grid acceleration in the framework into one
 product-level API — the same capabilities as `PDE(mesh, -laplacian())` on a
 general mesh, at the 10M-dof scale:
 
-  device mesh synthesis -> FUSED coords->stencil pallas kernel
-  (ops/pallas_assembly.p1_stencil_layers_from_coords: local assembly +
-  global stencil scatter in one manual-DMA pass) -> Dirichlet identity fold
-  + exact-zero layer pruning (ops/grid_dia) -> geometric-multigrid
-  preconditioned CG (ops/grid_mg), optionally wrapped in f64 iterative
-  refinement (f32's attainable TRUE residual at kappa ~ 1/h^2 is
-  O(eps32 * kappa); the refined path restores f64-grade accuracy while the
-  inner work stays f32 — measured 2.6 s to 1.8e-9 rel residual at 10.2M
-  dofs vs ~63 s for f64 Jacobi-CG, BENCH_NOTES.md).
+  device mesh synthesis -> coords->stencil assembly in one elementwise
+  pass (ops/grid_assembly.stencil_from_coords: local assembly + global
+  stencil scatter) -> Dirichlet identity fold + exact-zero layer pruning
+  (ops/grid_dia) -> geometric-multigrid preconditioned CG (ops/grid_mg)
+  with f64 Krylov vectors around the f32 operator and V-cycle (f32's
+  attainable TRUE residual at kappa ~ 1/h^2 is O(eps32 * kappa); the f64
+  vectors restore f64-grade residuals while the V-cycle stays f32).
 
 Reference anchor: PDE + FEMLinearEllipticSolver (pde/pde.h:40-114,
 fem_linear_elliptic_solver.h:34-50) specialized to structured geometry.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -52,16 +52,14 @@ class StructuredPoisson:
 
     def _build(self):
         n, m, dtype = self.n, self.m, self.dtype
-        W = -(-m // 128) * 128  # lane-padded coordinate columns
 
         @jax.jit
         def go(shift):
-            # coordinate PLANES for the fused coords->stencil kernel
-            # (ops/pallas_assembly.p1_stencil_layers_from_coords); the
-            # traced `shift` defeats XLA constant folding of the nullary
-            # build (a folded build becomes a huge program literal)
-            gi = jnp.arange(n + 8, dtype=dtype)[:, None] + shift
-            gj = jnp.arange(W, dtype=dtype)[None, :]
+            # node coordinate PLANES (ops/grid_assembly.stencil_from_coords);
+            # the traced `shift` keeps XLA from constant-folding the nullary
+            # build into a large program literal
+            gi = jnp.arange(m, dtype=dtype)[:, None] + shift
+            gj = jnp.arange(m, dtype=dtype)[None, :]
             X = gi / n + 0.0 * gj
             Y = gj / n + 0.0 * gi
             ii = jnp.arange(m)
@@ -123,34 +121,31 @@ class StructuredPoisson:
 
         refine=True (the DEFAULT whenever x64 is enabled, "auto"): MIXED-
         PRECISION CG — f64 vectors with the V-cycle preconditioner applied
-        in the model dtype (f32). Measured at 10.2M dofs: identical
-        iteration counts and final true residuals to an all-f64 solve, 8x
-        faster (0.67 s vs 5.4 s) and ~6x faster than the former iterative-
-        refinement scheme. Plain f32 MG-CG stalls at a TRUE relative
-        residual of O(eps32 * kappa) ~ 0.1 at 10M dofs, so pass
+        in the model dtype (f32): the f32 rounding perturbs the
+        preconditioner, not the f64 Krylov recurrence. Plain f32 MG-CG
+        stalls at a TRUE relative residual of O(eps32 * kappa), so pass
         refine=False only for the raw-f32 iteration engine. n_refine is
         retained for API compatibility (unused)."""
-        import jax as _jax
-
         if refine == "auto":
-            refine = bool(_jax.config.jax_enable_x64)
+            refine = bool(jax.config.jax_enable_x64)
         G = self.operator()
         mg = self.multigrid()
         if b is None:
             b = self.rhs()
         if not refine:
-            run = jax.jit(
-                lambda G, mg, b: mg_preconditioned_cg(
-                    G, b, rtol=rtol, maxiter=maxiter, mg=mg
-                )
-            )
-            return run(G, mg, b)
-
-        assert jax.config.jax_enable_x64, "refine=True needs x64 enabled"
-        run = jax.jit(
-            lambda G, mg, b64: mg_preconditioned_cg(
-                G, b64, rtol=rtol, maxiter=maxiter, mg=mg,
-                prec_dtype=self.dtype,
-            )
-        )
+            return _mg_cg_fn(float(rtol), int(maxiter), None)(G, mg, b)
+        if not jax.config.jax_enable_x64:
+            raise ValueError("refine=True needs x64 enabled")
+        run = _mg_cg_fn(float(rtol), int(maxiter), jnp.dtype(self.dtype))
         return run(G, mg, jnp.asarray(b, jnp.float64))
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_cg_fn(rtol: float, maxiter: int, prec_dtype):
+    """One jitted MG-CG per (rtol, maxiter, V-cycle dtype): repeated
+    solves reuse the compiled program."""
+    return jax.jit(
+        lambda G, mg, b: mg_preconditioned_cg(
+            G, b, rtol=rtol, maxiter=maxiter, mg=mg, prec_dtype=prec_dtype
+        )
+    )

@@ -2,11 +2,10 @@
 
 The hot paths of the framework (SURVEY.md §2.10 mapping):
 
-- batched local-matrix quadrature contraction (fem/assembler.py einsums,
-  XLA-fused; Pallas variants live here as they land),
+- closed-form and batched local-matrix assembly (XLA-fused elementwise),
 - `ell.py`: scatter-free SpMV — the element-local products are combined per
   dof through a precomputed ELL adjacency (pure gathers + a small-axis
-  reduction), avoiding `segment_sum`'s scatter-add, which serializes on TPU.
+  reduction), avoiding `segment_sum`'s scatter-add.
 """
 
 from .closed_form import SYM_TO_FULL, p1_stiffness_2d_sym, pack_cell_axis
@@ -30,8 +29,6 @@ from .matfree_soa import (
     MatrixFreeSoA3D,
     ell_from_op_blocked,
 )
-from .lane_aux import LaneAuxGrid, lane_friendly_grid_n
-from .pallas_gather_spmv import LaneRoutedELL
 from .window_spmv import WindowedELL
 
 __all__ = [
@@ -42,8 +39,6 @@ __all__ = [
     "BandedMGPreconditioner3D",
     "BandedSplit",
     "BandedSplit3D",
-    "LaneAuxGrid",
-    "LaneRoutedELL",
     "WindowedELL",
     "MatrixFreeLocal",
     "MatrixFreeSoA",
@@ -53,7 +48,6 @@ __all__ = [
     "build_ell_adjacency",
     "ell_from_op_blocked",
     "ell_spmv",
-    "lane_friendly_grid_n",
     "local_matvec",
     "p1_local_stiffness",
     "p1_stiffness_2d_sym",

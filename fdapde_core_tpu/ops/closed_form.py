@@ -8,17 +8,10 @@ The P1/2D stiffness has the closed form
 (the reference evaluates the same bilinear form by quadrature per cell,
 fem_assembler.h:79-110; for P1 the integrand is piecewise constant).
 
-Layout: coordinates arrive as ``(6, L, 128)`` — the cell axis is split into
-(L, 128) so the minor-most two dims tile exactly onto the TPU's (8, 128)
-f32 tiles with ZERO padding. A flat ``(6, C)`` array pads sublanes 6->8 and
-a ``(9, C)`` output pads 9->16, inflating HBM traffic 1.33x/1.78x; the 3D
-layout removes both (measured: 3.05 -> 9.4 G elements/s on v5e, see
-benchmarks/micro_assembly3.py).
-
-Plain XLA beats a hand-written Pallas kernel here: the op is elementwise,
-XLA's fused loops stream at ~450-630 GB/s while pallas_call's block pipeline
-floors at ~310 GB/s for pure copies on this hardware generation. Measured,
-not assumed — benchmarks/micro_assembly3.py.
+Layout: coordinates arrive as ``(6, ...)`` — the row index first, any
+trailing cell-axis shape (e.g. ``(6, C)`` or ``(6, C/128, 128)``) after it,
+so every row is a contiguous stream and the op is one fused elementwise
+pass.
 
 Only the 6 unique entries of the symmetric 3x3 local matrix are produced;
 ``SYM_TO_FULL`` expands row-major (i, j) -> packed index.
@@ -45,7 +38,7 @@ def p1_stiffness_2d_sym(coords: jnp.ndarray) -> jnp.ndarray:
     """Packed symmetric local stiffness of the (positive) form int grad.grad.
 
     coords: (6, ...) rows are x1,y1,x2,y2,x3,y3 over any trailing cell-axis
-    shape (use (6, C/128, 128) on TPU for a padding-free layout). Returns
+    shape. Returns
     (6, ...) packed rows [a11, a12, a13, a22, a23, a33].
     """
     x1, y1, x2, y2, x3, y3 = (coords[i] for i in range(6))

@@ -1,10 +1,9 @@
 """Banded-DIA + ELL-remainder split of assembled general sparse operators.
 
-Generic gathers on TPU run near-scalar (~64M-1.5G elem/s; BENCH_NOTES.md)
-while static 2D-grid stencil shifts run at memory bandwidth (~630 GB/s) —
-a ~6x CG-iteration gap between the assembled-ELL general path and the
-structured GridDIA path at 10M dofs. This module closes most of that gap
-for BANDED matrices (any matrix after RCM reordering, parallel/reorder.py)
+A gather SpMV reads a column index for every entry and gathers x through
+it, while static 2D-grid stencil shifts stream the operator and x with no
+index arrays at all. This module moves the general path onto stencil
+shifts for BANDED matrices (any matrix after RCM reordering, parallel/reorder.py)
 without assuming anything about the mesh:
 
 1. Measure the flat offset histogram d = col - row of an assembled ELLSoA.
@@ -21,7 +20,7 @@ the stencil window captures ~all entries and the remainder is O(R) lane-
 wrap entries per layer. The split is exact: DIA part + remainder == the
 input operator, verified by `tests/test_dia_split.py`.
 
-Reference anchor: this is the TPU-idiomatic replacement for the assembled
+Reference anchor: this is the index-free replacement for the assembled
 CSR SpMV feeding Eigen's iterative solvers on arbitrary meshes
 (fem_assembler.h:99-118 assembled operator; SpMV is the CG hot loop that
 replaces SparseLU, fem_linear_elliptic_solver.h:38-47).
@@ -63,11 +62,9 @@ def _band_hist_jit(cols, vals, B):
 
 @functools.partial(jax.jit, static_argnums=(2,))
 def _band_probe_jit(cols, vals, Bcap):
-    """Fused bandwidth + capped histogram: ONE device program (each
-    separate program's first execution pays the 1-300 s remote-compile
-    roulette on this harness — the old two-program plan path cost ~10 s
-    of the gen10m setup). Valid when the returned B <= Bcap; the caller
-    falls back to the exact two-program path otherwise."""
+    """Fused bandwidth + capped histogram: ONE device program. Valid
+    when the returned B <= Bcap; the caller falls back to the exact
+    two-program path otherwise."""
     n = cols.shape[1]
     rows = jnp.arange(n, dtype=cols.dtype)[None, :]
     d = cols - rows
@@ -287,8 +284,7 @@ class BandedMGPreconditioner:
         offsets) or None when the split is not 9-point. Splitting the plan
         from the tracing lets callers fuse the coarsening chain into a
         larger program (models/matfree._try_banded_upgrade runs split +
-        fold + chain as ONE program: every separate program's first
-        execution pays the remote-compile roulette)."""
+        fold + chain as ONE program)."""
         if any(abs(a) > 1 or abs(b) > 1 for a, b in offsets2d):
             return None  # galerkin_coarsen needs a 9-point window
         R, W = shape2d

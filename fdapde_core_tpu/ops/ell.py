@@ -7,15 +7,15 @@ The matrix-free FEM SpMV has three stages:
     combine  y[d] = sum of ye over all (cell, slot) incident to dof d
 
 The reference does stage 3 with Eigen's scatter (setFromTriplets semantics);
-the straightforward XLA form is `segment_sum` — a scatter-add, which TPUs
-execute serially per-duplicate. Here stage 3 is re-expressed as a GATHER:
+the straightforward XLA form is `segment_sum` — a scatter-add, which
+serializes on duplicate indices. Here stage 3 is re-expressed as a GATHER:
 a precomputed ELL table `adj[d, k]` lists the flat (cell*nb + slot) incident
 positions of dof d (padded to the max vertex degree), so
 
     y = (ye.flat[adj] * mask).sum(axis=1)
 
 is a dense gather + reduction over a tiny axis — fully vectorizable on the
-VPU. The adjacency build itself is one device `argsort` + `searchsorted`,
+device. The adjacency build itself is one device `argsort` + `searchsorted`,
 so the whole pipeline (build + iterate) runs on-chip with no host transfer.
 """
 
@@ -74,7 +74,7 @@ class ELLMatrix:
     The ASSEMBLED counterpart of the matrix-free pipeline above: one
     gathered element per nonzero per SpMV (vs one per incident (cell, slot)
     PLUS one per element-local entry for the matrix-free form — ~1.6x fewer
-    gathers for P1 meshes, the dominant cost of the general path on TPU).
+    gathers for P1 meshes, the dominant cost of the general path).
     Padding entries carry col = row index and val = 0, so no mask is needed
     in the SpMV. Duplicate (row, col) pairs are NOT allowed (from_local
     merges them).

@@ -1,19 +1,20 @@
 """Scatter-free stencil conversion for tensor-product (structured) meshes.
 
-The generic DIA conversion (linear_algebra.dia.dia_from_coo) is a giant
-segment-sum: 9 x n_cells scatter-adds that run near-scalar on TPU (~2.3 s
-for 20M cells). On a structured criss-cross mesh the scatter is statically
-resolvable: cell (i, j) of each triangle type touches dofs at FIXED grid
-displacements, so every (type, local_row, local_col) combination maps to
+The generic DIA conversion (linear_algebra.dia.dia_from_coo) is a
+segment-sum: 9 x n_cells scatter-adds. On a structured criss-cross mesh the
+scatter is statically resolvable: cell (i, j) of each triangle type touches
+dofs at FIXED grid displacements, so every (type, local_row, local_col)
+combination maps to
 
   - one static stencil layer (the dof-index offset is the same for every
     cell of that type), and
   - one contiguous (n, n) block of that layer (rows are affine in (i, j)).
 
-Conversion therefore becomes 18 fused slice-adds over (n, n) grids — pure
-memory passes, ~50 ms instead of ~2.3 s at the 10M-dof scale. Valid for any
-coordinates (curvilinear tensor-product grids included): only the
-CONNECTIVITY is structured, the local matrices are arbitrary.
+Conversion therefore becomes slice-adds over (n, n) grids: pure memory
+passes. Valid for any coordinates (curvilinear tensor-product grids
+included): only the CONNECTIVITY is structured, the local matrices are
+arbitrary. `stencil_from_coords` goes one step further and computes the
+stencil straight from the node coordinates in one elementwise expression.
 
 Mesh convention (geometry/structured.py, bench.py): quad (i, j), i, j in
 [0, n), lower-left node a = i*m + j with m = n+1 nodes per side, split into
@@ -30,8 +31,7 @@ from .grid_dia import GridDIAMatrix
 
 __all__ = [
     "p1_grid_stencil",
-    "p1_grid_stencil_offdiag",
-    "stencil_from_offdiag_planes",
+    "stencil_from_coords",
     "GRID_OFFSETS2D",
 ]
 
@@ -72,100 +72,76 @@ def p1_grid_stencil(A6, n: int) -> GridDIAMatrix:
     return GridDIAMatrix(data, GRID_OFFSETS2D, (m, m))
 
 
-# packed off-diagonal row index for unordered local pair {p, q}
-_OFFDIAG_ROW = {(0, 1): 0, (0, 2): 1, (1, 2): 2}
+def _coords_offdiag_planes(X, Y, n: int):
+    """Off-diagonal local stiffness entries of every cell, on the quad grid.
+
+    X, Y: node coordinate planes, node (i, j) at [i, j] (at least (n+1,
+    n+1); rows and columns beyond n are ignored). Returns six (n, n) planes
+    (a12, a13, a23, b12, b13, b23): the [p, q] entries of the type-A cell
+    (a, b, a+1) and of the type-B cell (b, b+1, a+1) of quad (i, j).
+
+    The P1 stiffness of int grad.grad from edge vectors u = p2 - p1,
+    v = p3 - p1 is (b b^T + c c^T) / (2 |det|) with b = (uy-vy, vy, -uy),
+    c = (vx-ux, -vx, ux) and det = ux vy - vx uy (ops/closed_form).
+    """
+    x0, y0 = X[:n, :n], Y[:n, :n]  # a = (i, j)
+    xd, yd = X[1 : n + 1, :n], Y[1 : n + 1, :n]  # b = (i+1, j)
+    xr, yr = X[:n, 1 : n + 1], Y[:n, 1 : n + 1]  # a+1 = (i, j+1)
+    xdr, ydr = X[1 : n + 1, 1 : n + 1], Y[1 : n + 1, 1 : n + 1]  # b+1
+
+    def offdiag(ux, uy, vx, vy):
+        inv = 1.0 / (2.0 * jnp.abs(ux * vy - vx * uy))
+        b1, b2, b3 = uy - vy, vy, -uy
+        c1, c2, c3 = vx - ux, -vx, ux
+        return (
+            (b1 * b2 + c1 * c2) * inv,
+            (b1 * b3 + c1 * c3) * inv,
+            (b2 * b3 + c2 * c3) * inv,
+        )
+
+    # type A (a, b, a+1): u = b - a, v = (a+1) - a
+    pa = offdiag(xd - x0, yd - y0, xr - x0, yr - y0)
+    # type B (b, b+1, a+1): u = (b+1) - b, v = (a+1) - b
+    pb = offdiag(xdr - xd, ydr - yd, xr - xd, yr - yd)
+    return pa + pb
 
 
-def p1_grid_stencil_offdiag(A3, n: int) -> GridDIAMatrix:
-    """GridDIAMatrix from OFF-DIAGONAL-only local matrices.
+def _stencil_rows_from_planes(planes):
+    """The 7 stencil layers, in GRID_OFFSETS2D order, from the six (n, n)
+    off-diagonal planes. Each off-center layer at node (I, J) is the sum of
+    two plane values at quads (I - di, J - dj), di, dj in {0, 1}; the
+    center layer is -(sum of the six others), exact for gradient-form
+    stiffness (every row sums to zero). Returns (7, n + 1, n + 1)."""
+    # pad one zero quad row above and below, one zero quad column on the
+    # right: row r of a padded plane is quad row r - 1
+    pa12, pa13, pa23, pb12, pb13, pb23 = (
+        jnp.pad(p, ((1, 1), (0, 1))) for p in planes
+    )
 
-    A3: (3, >= 2 n^2) rows [a12, a13, a23] per cell
-    (ops/pallas_assembly.p1_stiffness_edges_offdiag). Uses the row-sum-zero
-    identity of gradient-form stiffness matrices: the center stencil layer
-    equals -(sum of the six off-diagonal layers) — one dense pass, exact —
-    so assembly ships 12 B/cell instead of 24 (and the conversion drops
-    from 18 to 12 slice-adds). Matches p1_grid_stencil on the full packed
-    matrices bit-for-modulo-rounding (tests/test_ops.py).
+    def rshift(p):  # p[:, J] <- p[:, J - 1], zero into column 0
+        return jnp.pad(p, ((0, 0), (1, 0)))[:, :-1]
+
+    by_off = {
+        (1, 0): pa12[1:] + rshift(pb23)[1:],
+        (-1, 0): pa12[:-1] + rshift(pb23)[:-1],
+        (0, 1): pa13[1:] + pb12[:-1],
+        (0, -1): rshift(pa13)[1:] + rshift(pb12)[:-1],
+        (-1, 1): pa23[:-1] + pb13[:-1],
+        (1, -1): rshift(pa23)[1:] + rshift(pb13)[1:],
+    }
+    by_off[(0, 0)] = -sum(by_off.values())
+    return jnp.stack([by_off[o] for o in GRID_OFFSETS2D])
+
+
+def stencil_from_coords(X, Y, n: int) -> GridDIAMatrix:
+    """GridDIAMatrix of the P1 -laplacian operator straight from node
+    coordinate planes: local assembly and the global stencil scatter as
+    one elementwise XLA expression (no per-cell arrays are materialized).
+
+    X, Y: (>= n + 1, >= n + 1) planes, node (i, j) at [i, j]; any extra
+    rows or columns are ignored. Matches p1_grid_stencil of the packed
+    local matrices up to rounding (tests/test_ops.py).
     """
     m = n + 1
-    A = A3.reshape(3, -1)
-    vals = {
-        "A": A[:, : n * n].reshape(3, n, n),
-        "B": A[:, n * n : 2 * n * n].reshape(3, n, n),
-    }
-    layers = {o: jnp.zeros((m, m), A3.dtype) for o in GRID_OFFSETS2D}
-    for t, pos in (("A", _POS_A), ("B", _POS_B)):
-        for p in range(3):
-            for q in range(3):
-                if p == q:
-                    continue
-                o = (pos[q][0] - pos[p][0], pos[q][1] - pos[p][1])
-                di, dj = pos[p]
-                row = _OFFDIAG_ROW[(min(p, q), max(p, q))]
-                layers[o] = layers[o].at[di : di + n, dj : dj + n].add(
-                    vals[t][row]
-                )
-    center = None
-    for o in GRID_OFFSETS2D:
-        if o == (0, 0):
-            continue
-        center = layers[o] if center is None else center + layers[o]
-    layers[(0, 0)] = -center
-    data = jnp.stack([layers[o] for o in GRID_OFFSETS2D])
-    return GridDIAMatrix(data, GRID_OFFSETS2D, (m, m))
-
-
-# quad-grid plane layout (ops/pallas_assembly.p1_offdiag_planes_from_coords):
-# planes[k] (n, n) over quads, k: 0=a12, 1=a13, 2=a23, 3=b12, 4=b13, 5=b23.
-# Each stencil layer at node (I, J) is the sum of exactly two plane values
-# at quad (I - di, J - dj) — expressible as two jnp.pads + one add, which
-# XLA fuses into ONE memory pass per layer. This replaces the 18
-# .at[].add() slice-accumulations of p1_grid_stencil (each of which
-# materializes a full (m, m) copy: measured 42 ms at 10M dofs vs ~2 ms for
-# the pad-sum form).
-_LAYER_SOURCES = {
-    (1, 0): ((0, 0, 0), (5, 0, 1)),    # a12(I,J)     + b23(I,J-1)
-    (-1, 0): ((0, 1, 0), (5, 1, 1)),   # a12(I-1,J)   + b23(I-1,J-1)
-    (0, 1): ((1, 0, 0), (3, 1, 0)),    # a13(I,J)     + b12(I-1,J)
-    (0, -1): ((1, 0, 1), (3, 1, 1)),   # a13(I,J-1)   + b12(I-1,J-1)
-    (-1, 1): ((2, 1, 0), (4, 1, 0)),   # a23(I-1,J)   + b13(I-1,J)
-    (1, -1): ((2, 0, 1), (4, 0, 1)),   # a23(I,J-1)   + b13(I,J-1)
-}
-
-
-def stencil_from_offdiag_planes(planes, n: int) -> GridDIAMatrix:
-    """GridDIAMatrix from (6, n, n) quad-grid off-diagonal planes.
-
-    The center layer uses the row-sum-zero identity of gradient-form
-    stiffness: L(0,0) = -(sum of the six off-diagonal layers) — exact.
-    Equals p1_grid_stencil(full packed matrices) up to f32 rounding
-    (tests/test_ops.py)."""
-    m = n + 1
-
-    def placed(k, di, dj):
-        return jnp.pad(planes[k], ((di, 1 - di), (dj, 1 - dj)))
-
-    layers = {}
-    for off, ((k1, d1, e1), (k2, d2, e2)) in _LAYER_SOURCES.items():
-        layers[off] = placed(k1, d1, e1) + placed(k2, d2, e2)
-    center = None
-    for off in _LAYER_SOURCES:
-        center = layers[off] if center is None else center + layers[off]
-    layers[(0, 0)] = -center
-    data = jnp.stack([layers[o] for o in GRID_OFFSETS2D])
-    return GridDIAMatrix(data, GRID_OFFSETS2D, (m, m))
-
-
-def stencil_from_coords(X, Y, n: int, **kw) -> GridDIAMatrix:
-    """GridDIAMatrix of the P1 -laplacian operator straight from node
-    coordinate planes — ONE fused pallas pass (assembly + global stencil
-    scatter) + one slice. See
-    ops/pallas_assembly.p1_stencil_layers_from_coords."""
-    import jax
-
-    from .pallas_assembly import p1_stencil_layers_from_coords
-
-    m = n + 1
-    layers = p1_stencil_layers_from_coords(X, Y, n, **kw)
-    data = jax.lax.slice(layers, (0, 7, 0), (7, 7 + m, m))
+    data = _stencil_rows_from_planes(_coords_offdiag_planes(X, Y, n))
     return GridDIAMatrix(data, GRID_OFFSETS2D, (m, m))

@@ -1,15 +1,15 @@
 """Padded-state Jacobi-preconditioned CG on 2D grid stencils (the fast path).
 
-Measured design (benchmarks/micro_cg.py, TPU v5e, 10M dofs, f32):
+Design (benchmarks/micro_cg.py times the variants):
 
 - the search direction p lives in an (mx+2H, my+2H) zero-border frame, so
   the per-iteration SpMV is pure STATIC slices (no jnp.pad materialization,
-  no dynamic_slice): 842 -> 1113 iters/s,
+  no dynamic_slice),
 - exact-zero stencil layers are pruned beforehand
   (ops/grid_dia.prune_zero_offsets_grid): 7 -> 5 layers on right-triangle
-  P1 meshes, 1113 -> 1238 iters/s,
+  P1 meshes,
 - optional reduced-precision stencil storage (``data_dtype=jnp.bfloat16``,
-  f32 vector arithmetic): 1238 -> 1520 iters/s. On uniform structured
+  f32 vector arithmetic) halves the operator bytes. On uniform structured
   meshes the P1 stencil entries are small exact binary fractions, so bf16
   storage is LOSSLESS there; on general meshes it perturbs the operator by
   ~4e-3 relative — use inside an iterative-refinement outer loop

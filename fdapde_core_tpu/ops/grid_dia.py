@@ -6,7 +6,7 @@ as (di, dj) grid displacements and the SpMV becomes a 2D stencil:
 
     y = sum_k data[k] * padded(x)[1+di_k : 1+di_k+mx, 1+dj_k : 1+dj_k+my]
 
-2D slices keep the lane dimension contiguous — friendlier to the TPU memory
+2D slices keep the lane dimension contiguous — friendlier to the device memory
 system than 1D concatenate-shifts for row-crossing offsets.
 """
 

@@ -1,14 +1,12 @@
 """SoA (cell-axis-LAST) general gather pipeline: the device-scale layouts.
 
 The AoS forms in ops/matfree.py ((C, 3, 3) local matrices, (C, 3) dof
-tables, (n, K) adjacency) are correct everywhere but HBM-hostile on TPU at
-scale: XLA tiles the two minor dims T(8, 128), so a minor axis of 3 pads
-42x — a 20M-cell coordinate gather allocates 21 GB (measured: the full-size
-bench compile failed with exactly that). This module re-expresses the same
-pipeline with the large axis LAST everywhere (the BENCH_NOTES.md layout
-rule): per-corner (C,) gathers, symmetric rank-deficient stencil storage
-(s01, s02, s12; diagonals from the zero row sums), (D, n) adjacency tables
-and (K, n) assembled ELL — every array tiles exactly.
+tables, (n, K) adjacency) are correct everywhere but put a tiny axis
+minor-most, which device layouts may pad and which turns every access
+into a short strided read. This module re-expresses the same pipeline
+with the large axis LAST everywhere: per-corner (C,) gathers, symmetric
+rank-deficient stencil storage (s01, s02, s12; diagonals from the zero row
+sums), (D, n) adjacency tables and (K, n) assembled ELL.
 
 Same math as ops/matfree.py / ops/ell.py; parity-tested against them.
 """
@@ -607,12 +605,11 @@ class MatrixFreeP2SoA:
 # blocked ELL conversion: bounded device programs
 # ---------------------------------------------------------------------------
 #
-# The fused _ell_from_entries program at 10M+ rows (transients (nb*D, n),
-# a 246M-element gather + scatter cascade) runs long enough to trip the
-# remote executor's ~60 s execution watchdog (the same failure class the
-# chunked Krylov solvers guard against; linear_algebra/solvers.cg_chunked).
-# Rows are INDEPENDENT in the conversion, so it blocks cleanly: one
-# compiled per-block program executed `blocks` times + one concat.
+# The fused _ell_from_entries program at 10M+ rows holds (nb*D, n)
+# transients (a 246M-element gather + scatter cascade). Rows are
+# INDEPENDENT in the conversion, so it blocks cleanly: one compiled
+# per-block program executed `blocks` times + one concat, with transients
+# bounded by the block size.
 
 import functools as _functools
 
@@ -661,7 +658,7 @@ def _ell_concat(n, vals_list, cols_list, over_list):
 def ell_from_op_blocked(op, max_cols: int, blocks: int = 8):
     """Host-staged `to_ell`: identical result, split into `blocks` bounded
     device programs over independent row blocks. NOT for use inside jit —
-    this is the watchdog-safe path for 10M+-row conversions; use
+    this is the bounded-memory path for 10M+-row conversions; use
     `op.to_ell(max_cols)` inside jitted pipelines at moderate sizes.
     Returns (ELLSoA, overflowed bool array).
     """

@@ -1,8 +1,8 @@
 """Struct-of-arrays (cell-axis-last) assembly path.
 
-On TPU, a (C, nq, nb, N) intermediate is tile-padded on its minor axes
-(8x128 tiles), blowing memory up ~50x at 10M cells (observed: a 360MB
-logical tensor allocating 20GB). Keeping the cell axis LAST pads only C.
+A (C, nq, nb, N) intermediate puts tiny axes minor-most, which device
+layouts may pad many-fold at 10M cells. Keeping the cell axis LAST leaves
+every array one long contiguous axis.
 This module mirrors fem/assembler.local_matrices with every array shaped
 (..., C), unrolling the tiny nq/nb/N axes into scalar-weighted fused
 elementwise ops on (C,) vectors.

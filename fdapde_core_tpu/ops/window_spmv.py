@@ -3,10 +3,9 @@
 The banded DIA split (ops/dia_split.py) serves matrices whose RCM offset
 histogram CONCENTRATES on a few offsets; genuinely scattered bands —
 imported Delaunay meshes after RCM, P2 numberings — are rejected by
-`plan_split_width` and previously fell back to raw ELL gathers over the
-full (n,) vector: ~1.3 CG iters/s at 10.25M dofs (BENCH_NOTES.md), the
-round-3 capability hole vs the reference's SparseLU-on-any-mesh
-(fem_linear_elliptic_solver.h:38-47).
+`plan_split_width` and otherwise fall back to raw ELL gathers over the
+full (n,) vector (the reference's SparseLU solves on any mesh,
+fem_linear_elliptic_solver.h:38-47).
 
 Design: rows in static blocks of R; after RCM every column of block i
 lies in [i*R - B, i*R + R + B) (B = matrix bandwidth, host-checked at

@@ -3,7 +3,7 @@
 Semantics mirror the reference:
 
 - `grid_search`: exhaustive minimization over an explicit grid (grid.h:28-71)
-  — evaluated as one vmapped batch (embarrassingly parallel on TPU),
+  — evaluated as one vmapped batch (embarrassingly parallel on device),
 - `gradient_descent`: steepest descent, update = -step * grad, stop when
   ||grad|| < tol or max_iter (gradient_descent.h:27-75),
 - `newton`: direction = -H^{-1} grad via dense solve (newton.h:28-101),

@@ -1,6 +1,6 @@
 """Multi-chip execution: mesh partitioning + shard_map'ed assembly and CG.
 
-This layer is a *new design obligation* of the TPU build (SURVEY.md §5.7-5.8):
+This layer is a *new design obligation* of the JAX build (SURVEY.md §5.7-5.8):
 the reference is single-threaded end-to-end (its ThreadPool is dead code,
 multithreading.h is empty). Here:
 
@@ -13,13 +13,12 @@ multithreading.h is empty). Here:
 
 The v1 strategy shards the *elements* (where all the FLOPs are) and
 replicates the dof vector: assembly is embarrassingly parallel; each CG
-SpMV costs one `psum` over ICI. Owned-dof partitioning with halo
+SpMV costs one `psum` over the device interconnect. Owned-dof partitioning with halo
 `ppermute` exchange is the planned v2 (SURVEY.md §7 phase 5).
 """
 
 from .halo import HaloDIAParabolic, HaloDIASolver
 from .halo_ell import HaloELLSolver
-from .halo_lane import HaloLaneSolver
 from .halo_grid import HaloGridDIASolver
 from .partition import morton_order, partition_elements
 from .sharded import ShardedPoisson, make_device_mesh
@@ -34,6 +33,5 @@ __all__ = [
     "HaloDIASolver",
     "HaloDIAParabolic",
     "HaloELLSolver",
-    "HaloLaneSolver",
     "HaloGridDIASolver",
 ]

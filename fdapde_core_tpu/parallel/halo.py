@@ -27,8 +27,8 @@ def _maybe_escalate(solver, float_attrs, args, x, res, k, bnorm, rtol,
     """One-shot escalation for distributed Krylov solves (SURVEY §5.3).
 
     If the returned residual is non-finite or above tol: recast an f32
-    operator to f64 and re-run (the dominant distributed stall on TPU is
-    the f32 residual floor, BENCH_NOTES.md); an already-f64 solve gets a
+    operator to f64 and re-run (the usual distributed stall is the f32
+    residual floor); an already-f64 solve gets a
     tripled iteration budget instead. Host-level, one retry, mirrors
     fem/solvers._recover_elliptic.
     """
@@ -176,7 +176,7 @@ class HaloDIASolver:
 
         Failure recovery (SURVEY §5.3): a distributed CG that stalls or
         goes non-finite gets ONE escalation — f32 operators are recast to
-        f64 (the dominant stall cause on TPU is the f32 residual floor),
+        f64 (the usual stall cause is the f32 residual floor),
         otherwise the iteration budget is tripled.
         """
         b = self._pad(b)

@@ -1,6 +1,6 @@
 """shard_map'ed FEM assembly + conjugate gradients over a device mesh.
 
-The multi-chip execution model (new in the TPU build; the reference is
+The multi-chip execution model (new in this build; the reference is
 serial — SURVEY.md §2.9):
 
 - elements are partitioned into contiguous SFC blocks, one per device
@@ -150,7 +150,7 @@ class ShardedPoisson:
         # scatter-free per-shard combine (ops/ell.py): each device holds the
         # ELL incidence table of ITS OWN cell block over the replicated dof
         # axis, so the partial SpMV is pure gathers — segment_sum's
-        # scatter-add serializes on TPU (BENCH_NOTES.md). One vmapped
+        # scatter-add serializes on duplicate indices. One vmapped
         # device build at init, sharded (S, n_dofs, K) over the mesh axis.
         self.spmv = spmv
         self._adj_d = self._adjmask_d = None

@@ -60,8 +60,8 @@ class PDE:
         # the masked operator, linear_algebra/amg.py — topology-only,
         # always applicable), or "auxgrid" (auxiliary structured-grid
         # two-level preconditioner, ops/auxgrid.py — box-like domains,
-        # far fewer gathers per application on TPU); both give
-        # h-independent CG iteration counts on unstructured meshes
+        # far fewer gathers per application); both give h-independent CG
+        # iteration counts on unstructured meshes
         self.solver_preconditioner = solver_preconditioner
 
         if discretization == "fem":
@@ -192,40 +192,42 @@ class PDE:
 
             gvec = jnp.asarray(g.reshape(-1) if g.ndim > 1 else g)
             # preconditioner selection. "auto" (also the default beyond
-            # _AUTO_PRECOND_DOFS): auxiliary-grid first — measured ~13x
-            # cheaper per application than on-chip SA-AMG V-cycles at equal
-            # (h-independent) iteration counts, 6.0 s vs 41.6 s refined
-            # solve at 0.52M dofs (BENCH_NOTES.md "AMG vs aux-grid") —
-            # with SA-AMG as the fallback for domains no covering grid
-            # preconditions (auxgrid build/mask failures).
+            # _AUTO_PRECOND_DOFS): auxiliary-grid first — far fewer gathers
+            # per application than SA-AMG at equal (h-independent)
+            # iteration counts — with SA-AMG for meshes the aux-grid build
+            # cannot cover (it raises ValueError or fails a grid-shape
+            # assertion); solve errors are never caught here
             precond = self.solver_preconditioner
             auto = precond == "auto" or (
                 precond is None and self.space.n_dofs >= _AUTO_PRECOND_DOFS
             )
-            if precond == "auxgrid" or auto:
+            name = "custom" if callable(precond) else (precond or "jacobi")
+            if precond == "auxgrid":
                 precond = ("auxgrid", self.space.dof_coords)
+            elif auto:
+                from ..fem.solvers import DirichletSystem, auxgrid_preconditioner
 
-            def _run(pre):
-                return solve_elliptic(
-                    self._stiff,
-                    self._force
-                    if self._force.ndim == 1
-                    else self._force.reshape(-1),
-                    mask,
-                    gvec,
-                    symmetric=self.operator.is_symmetric,
-                    rtol=self.solver_rtol,
-                    maxiter=self.solver_maxiter,
-                    preconditioner=pre,
-                )
-
-            if auto:
                 try:
-                    x, info = _run(precond)
-                except Exception:
-                    x, info = _run("amg")
-            else:
-                x, info = _run(precond)
+                    precond = auxgrid_preconditioner(
+                        DirichletSystem(self._stiff, mask),
+                        self.space.dof_coords,
+                    )
+                    name = "auxgrid"
+                except (ValueError, AssertionError):
+                    precond = name = "amg"
+            self.solve_preconditioner = name
+            x, info = solve_elliptic(
+                self._stiff,
+                self._force
+                if self._force.ndim == 1
+                else self._force.reshape(-1),
+                mask,
+                gvec,
+                symmetric=self.operator.is_symmetric,
+                rtol=self.solver_rtol,
+                maxiter=self.solver_maxiter,
+                preconditioner=precond,
+            )
             self._solution = x
             self.solve_info = info
             self.success = bool(info.converged)

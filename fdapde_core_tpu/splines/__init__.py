@@ -1,10 +1,10 @@
 """B-spline discretization (1D/time): basis, assembly, solvers.
 
-TPU-native counterpart of `fdaPDE/splines/`. The reference's compile-time
+JAX counterpart of `fdaPDE/splines/`. The reference's compile-time
 Cox–de Boor expression recursion (splines/basis/spline.h) becomes a
 vectorized de Boor triangle over (points x basis) arrays; the per-pair
 knot-span assembly loop (spline_assembler.h:56-69) becomes two small dense
-matmuls B^T W B over all Gauss–Legendre points at once (MXU-friendly).
+matmuls B^T W B over all Gauss–Legendre points at once (matrix-unit friendly).
 """
 
 from .basis import SplineBasis, spline_basis_matrix

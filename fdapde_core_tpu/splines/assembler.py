@@ -9,7 +9,7 @@ and becomes two dense matmuls
     A = B_i^T diag(w) B_j
 
 with B the (n_gauss_total, n_basis) basis (or derivative) tabulation — an
-MXU-shaped contraction instead of a nested scalar loop.
+matmul-shaped contraction instead of a nested scalar loop.
 
 Weak forms:
 - Reaction<SPLINE>: c * psi_i * psi_j            (splines/operators/reaction.h:31-53)

@@ -16,7 +16,7 @@ match exactly:
 
 Everything is evaluated as dense (n_points, n_basis) arrays in one pass — the
 de Boor triangle is a fori-style loop of elementwise ops, vectorizable on the
-VPU and trivially jit-able.
+device and trivially jit-able.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Support utilities: combinatorics, quadrature tables, IO, data structures.
 
-TPU-native counterpart of the reference `fdaPDE/utils/` layer
+JAX counterpart of the reference `fdaPDE/utils/` layer
 (/root/reference/fdaPDE/utils.h). Compile-time C++ machinery (traits, type
 erasure, expression nesting) has no analogue here — Python duck typing and JAX
 tracing provide the same extension points.

@@ -1,7 +1,7 @@
 """Numerical sanitization hooks (SURVEY §5.2).
 
 The reference's only sanitization is valgrind in CI (test/run_tests.sh:74-78)
-and -Werror; nothing numerical. The TPU build's obligations are NaN
+and -Werror; nothing numerical. This build's obligations are NaN
 propagation checks inside jit-compiled code and cross-run determinism:
 
 - `debug_nans()`: context manager flipping `jax_debug_nans` — every jit in

@@ -17,6 +17,7 @@ from fdapde_core_tpu.fem.solvers import masked_matrix
 from fdapde_core_tpu.fem.space import FEMSpace
 from fdapde_core_tpu.linear_algebra.amg import AMG, aggregate, amg_preconditioned_cg
 from fdapde_core_tpu.linear_algebra.solvers import cg
+from fdapde_core_tpu.geometry.structured import unit_square_mesh
 from tests.conftest import load_mesh
 
 
@@ -153,3 +154,41 @@ def test_amg_checkpoint_roundtrip(tmp_path):
     )
     _, info = cg(Am, bm, M_inv=mg2.v_cycle, rtol=1e-10, maxiter=60)
     assert bool(info.converged)
+
+
+@pytest.mark.parametrize(
+    "domain, expect",
+    [("interval", "amg"), ("square", "auxgrid")],
+)
+def test_auto_preconditioner_choice(domain, expect):
+    """solver_preconditioner="auto": the aux-grid build is tried first and
+    only its own failure (a mesh it cannot cover, here 1D dof coordinates)
+    selects SA-AMG; the solve itself is not wrapped."""
+    from fdapde_core_tpu.geometry import Interval
+
+    mesh = (Interval(0.0, 1.0, 64) if domain == "interval"
+            else unit_square_mesh(16))
+    pde = fdm.PDE(mesh, -fdm.laplacian(), order=1,
+                  solver_preconditioner="auto")
+    g = pde.dof_coords().sum(axis=1)
+    pde.set_dirichlet_bc(g)
+    pde.set_forcing(np.zeros((pde.quadrature_nodes().shape[0], 1)))
+    pde.init()
+    pde.solve()
+    assert pde.solve_preconditioner == expect
+    assert pde.success and pde.l2_error(g) < 1e-18
+
+
+def test_auto_preconditioner_does_not_hide_solve_errors(monkeypatch):
+    import fdapde_core_tpu.fem.solvers as fem_solvers
+
+    def broken(*a, **k):
+        raise RuntimeError("device failure")
+
+    monkeypatch.setattr(fem_solvers, "solve_elliptic", broken)
+    pde = fdm.PDE(unit_square_mesh(8), -fdm.laplacian(), order=1,
+                  solver_preconditioner="auto")
+    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+    pde.init()
+    with pytest.raises(RuntimeError, match="device failure"):
+        pde.solve()

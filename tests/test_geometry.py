@@ -1,44 +1,53 @@
-"""Geometry tests: topology parity with reference mesh fixtures, measures,
-point location, KD-tree, projection, Voronoi."""
+"""Geometry tests: topology parity with reference mesh fixtures (golden
+data), measures, point location, KD-tree, projection, Voronoi on generated
+meshes."""
 
 import numpy as np
 import pytest
 
-from tests.conftest import load_mesh, reference_edges, reference_neighbors
+from tests.conftest import (
+    golden_mesh,
+    reference_edges,
+    reference_neighbors,
+    reference_path,
+)
 
 
 def test_unit_square_counts(unit_square):
-    # documented counts (test/src/utils/mesh_loader.h:33-37)
+    # documented counts (test/src/utils/mesh_loader.h:33-37): the reference
+    # fixture is a 59 x 59 two-triangle grid, as is the generated mesh
     assert unit_square.n_nodes == 3600
     assert unit_square.n_cells == 6962
     assert unit_square.n_edges == 10561
 
 
-def test_unit_square_edges_match_reference(unit_square):
+def test_unit_square_edges_match_reference():
     """Edge *set* must match edges.csv (the file's ordering comes from the R
     mesh generator, not the C++ first-encounter numbering, so compare as
     sets). The first-encounter numbering itself is exercised by the P2 golden
     tests (lagrangian_pointwise_eval_order2.mtx)."""
     ref = np.sort(reference_edges("unit_square"), axis=1)
-    mine = np.sort(unit_square.edges, axis=1)
+    mine = np.sort(golden_mesh("unit_square").edges, axis=1)
     ref_sorted = ref[np.lexsort(ref.T[::-1])]
     mine_sorted = mine[np.lexsort(mine.T[::-1])]
     np.testing.assert_array_equal(mine_sorted, ref_sorted)
 
 
-def test_unit_square_neighbors_match_reference(unit_square):
+def test_unit_square_neighbors_match_reference():
     ref = reference_neighbors("unit_square")
-    np.testing.assert_array_equal(unit_square.neighbors, ref)
+    np.testing.assert_array_equal(golden_mesh("unit_square").neighbors, ref)
 
 
-def test_unit_sphere_neighbors_match_reference(unit_sphere):
+def test_unit_sphere_neighbors_match_reference():
+    unit_sphere = golden_mesh("unit_sphere")
     assert unit_sphere.n_nodes == 587
     assert unit_sphere.n_cells == 2775
     ref = reference_neighbors("unit_sphere")
     np.testing.assert_array_equal(unit_sphere.neighbors, ref)
 
 
-def test_surface_mesh(surface):
+def test_surface_mesh():
+    surface = golden_mesh("surface")
     # 2.5D manifold: 340 3D points, 616 elements (mesh_loader.h:35)
     assert surface.n_nodes == 340
     assert surface.n_cells == 616
@@ -86,8 +95,8 @@ def test_interval():
     assert m.boundary_node_markers().sum() == 2
 
 
-def test_network(mesh_dir):
-    net = load_mesh("network")
+def test_network():
+    net = golden_mesh("network")
     assert net.local_dim == 1 and net.embed_dim == 2
     # actual fixture sizes (mesh_loader.h:33's "204/559" comment is stale)
     assert net.n_nodes == 201
@@ -233,14 +242,15 @@ def test_native_topology_matches_numpy():
     np.testing.assert_array_equal(uniq_n, uniq_np)
 
 
-def test_network_sparse_neighbors_csv(mesh_dir):
+def test_network_sparse_neighbors_csv():
     """The reference stores 1.5D network adjacency as sparse COO CSV
     (mesh_loader.h:82); it must agree with the derived adjacency."""
     from fdapde_core_tpu.utils.io import read_csv_sparse
 
-    net = load_mesh("network")
+    net = golden_mesh("network")
     N = read_csv_sparse(
-        f"{mesh_dir}/network/neigh.csv", shape=(net.n_cells, net.n_cells)
+        reference_path("mesh", "network", "neigh.csv"),
+        shape=(net.n_cells, net.n_cells)
     ).toarray()
     for c in (0, 7, 100, 199):
         mine = set(net.cell_neighbors(c).tolist())

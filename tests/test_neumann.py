@@ -1,4 +1,4 @@
-"""Mixed Dirichlet/Neumann boundary conditions (new capability of the TPU
+"""Mixed Dirichlet/Neumann boundary conditions (new capability of this
 build; the reference core is Dirichlet-only)."""
 
 import numpy as np

@@ -51,37 +51,6 @@ def test_ell_overflow_detection():
 
 
 @pytest.mark.slow
-def test_pallas_p1_stiffness_matches_einsum():
-    """Closed-form Pallas kernel == quadrature einsum path (interpret mode
-    on CPU)."""
-    from fdapde_core_tpu.ops.pallas_assembly import TILE, p1_stiffness_2d
-    from fdapde_core_tpu.geometry.affine import affine_maps
-
-    mesh = unit_square_mesh(16)
-    space = FEMSpace(mesh, 1)
-    _, invJ, measure = affine_maps(
-        jnp.asarray(mesh.nodes, jnp.float32), jnp.asarray(mesh.cells)
-    )
-    ref = -local_matrices(
-        "laplacian", None, False,
-        jnp.asarray(space.phi_tab, jnp.float32),
-        jnp.asarray(space.grad_tab, jnp.float32),
-        jnp.asarray(space.quad.weights, jnp.float32), invJ, measure,
-    )
-    coords = mesh.nodes[mesh.cells].reshape(mesh.n_cells, 6).T  # (6, C)
-    C = mesh.n_cells
-    pad = (-C) % TILE
-    if pad:
-        fill = np.tile(coords[:, :1], (1, pad)) + np.array(
-            [[0], [0], [1], [0], [0], [1]]
-        )
-        coords = np.concatenate([coords, fill], axis=1)
-    out = p1_stiffness_2d(jnp.asarray(coords, jnp.float32))
-    got = np.asarray(out)[:, :C].T.reshape(C, 3, 3)
-    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=1e-6)
-
-
-@pytest.mark.slow
 def test_soa_assembly_matches_aos():
     """C-last assembly equals the standard path for a composed operator."""
     from fdapde_core_tpu.ops.soa_assembly import assemble_soa_values
@@ -182,41 +151,6 @@ def test_closed_form_sym_matches_einsum():
     flat = np.asarray(out6).reshape(6, -1)[:, :C]
     got = flat[list(SYM_TO_FULL)].T.reshape(C, 3, 3)
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-12, atol=1e-13)
-
-
-def test_pallas_p1_edges_matches_einsum():
-    """Edge-vector pallas kernel == quadrature einsum path (interpret mode)."""
-    from fdapde_core_tpu.geometry.affine import affine_maps
-    from fdapde_core_tpu.ops.closed_form import SYM_TO_FULL
-    from fdapde_core_tpu.ops.pallas_assembly import (
-        EDGE_TILE_S,
-        p1_stiffness_edges,
-    )
-
-    mesh = unit_square_mesh(16)
-    space = FEMSpace(mesh, 1)
-    _, invJ, measure = affine_maps(
-        jnp.asarray(mesh.nodes, jnp.float32), jnp.asarray(mesh.cells)
-    )
-    ref = -local_matrices(
-        "laplacian", None, False,
-        jnp.asarray(space.phi_tab, jnp.float32),
-        jnp.asarray(space.grad_tab, jnp.float32),
-        jnp.asarray(space.quad.weights, jnp.float32), invJ, measure,
-    )
-    p = mesh.nodes[mesh.cells]  # (C, 3, 2)
-    ev = np.stack(
-        [p[:, 1, 0] - p[:, 0, 0], p[:, 1, 1] - p[:, 0, 1],
-         p[:, 2, 0] - p[:, 0, 0], p[:, 2, 1] - p[:, 0, 1]]
-    )  # (4, C)
-    C = mesh.n_cells
-    pad = (-C) % (128 * EDGE_TILE_S)
-    fill = np.tile(np.array([[1.0], [0.0], [0.0], [1.0]]), (1, pad))
-    ev = np.concatenate([ev, fill], axis=1).reshape(4, -1, 128)
-    out6 = p1_stiffness_edges(jnp.asarray(ev, jnp.float32))
-    flat = np.asarray(out6).reshape(6, -1)[:, :C]
-    got = flat[list(SYM_TO_FULL)].T.reshape(C, 3, 3)
-    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=1e-6)
 
 
 def test_grid_cg_padded_and_pruning():
@@ -353,172 +287,78 @@ def test_grid_cg_refined_mixed_precision():
     )
 
 
-def test_offdiag_kernel_and_stencil_match_full_path():
-    """Off-diagonal-only assembly (row-sum-zero identity): kernel + stencil
-    conversion reproduce the full packed path on a PERTURBED-geometry mesh
-    (the structured case hides anti-diagonal bugs — its hypotenuse coupling
-    is exactly zero)."""
-    from fdapde_core_tpu.ops.grid_assembly import (
-        p1_grid_stencil,
-        p1_grid_stencil_offdiag,
-    )
-    from fdapde_core_tpu.ops.pallas_assembly import (
-        EDGE_TILE_S,
-        p1_stiffness_edges,
-        p1_stiffness_edges_offdiag,
-    )
-
-    n = 12
-    mref = n + 1
-    rng = np.random.default_rng(5)
-    # criss-cross cells in the bench's type-A-then-type-B order
-    ij = np.arange(n * n)
-    i, j = ij // n, ij % n
-    a = i * mref + j
-    b = a + mref
-    cells = np.concatenate(
-        [np.stack([a, b, a + 1], 1), np.stack([b, b + 1, a + 1], 1)], axis=0
-    )
-    gi, gj = np.meshgrid(np.arange(mref), np.arange(mref), indexing="ij")
-    nodes = np.stack([gi, gj], -1).reshape(-1, 2).astype(np.float64)
-    interior = (
-        (nodes[:, 0] > 0) & (nodes[:, 0] < n)
-        & (nodes[:, 1] > 0) & (nodes[:, 1] < n)
-    )
-    nodes[interior] += rng.uniform(-0.1, 0.1, size=(interior.sum(), 2))
-    nodes /= n
-
-    p = nodes[cells]
-    ev = np.stack(
-        [p[:, 1, 0] - p[:, 0, 0], p[:, 1, 1] - p[:, 0, 1],
-         p[:, 2, 0] - p[:, 0, 0], p[:, 2, 1] - p[:, 0, 1]]
-    )
-    C = cells.shape[0]
-    pad = (-C) % (128 * EDGE_TILE_S)
-    fill = np.tile(np.array([[1.0], [0.0], [0.0], [1.0]]), (1, pad))
-    ev = jnp.asarray(np.concatenate([ev, fill], axis=1).reshape(4, -1, 128))
-
-    G_full = p1_grid_stencil(p1_stiffness_edges(ev), n)
-    G_off = p1_grid_stencil_offdiag(p1_stiffness_edges_offdiag(ev), n)
-    assert G_full.offsets2d == G_off.offsets2d
-    np.testing.assert_allclose(
-        np.asarray(G_off.data), np.asarray(G_full.data), rtol=0, atol=1e-12
-    )
-    # anti-diagonal layers are genuinely nonzero here (perturbed geometry)
-    k = G_full.offsets2d.index((-1, 1))
-    assert float(np.abs(np.asarray(G_full.data[k])).max()) > 1e-3
-
-
-def test_coords_planes_stencil_pipeline_matches_full_path():
-    """Coordinate-plane assembly (XLA reference path on CPU) + pad-sum
-    stencil conversion == edge-kernel + slice-add conversion, on perturbed
-    geometry."""
-    from fdapde_core_tpu.ops.grid_assembly import (
-        p1_grid_stencil,
-        stencil_from_offdiag_planes,
-    )
-    from fdapde_core_tpu.ops.pallas_assembly import (
-        EDGE_TILE_S,
-        p1_offdiag_planes_from_coords,
-        p1_stiffness_edges,
-    )
-
-    n = 8
-    mref = n + 1
-    rng = np.random.default_rng(9)
-    gi, gj = np.meshgrid(np.arange(mref), np.arange(mref), indexing="ij")
-    nodes2d = np.stack(
-        [gi.astype(np.float64), gj.astype(np.float64)], axis=-1
-    )
+def _criss_cross(n, amp, seed, pad_to=None):
+    """Node coordinate planes of the criss-cross n x n grid, interior nodes
+    displaced by up to +-amp/2 cells, padded with junk to pad_to columns
+    and n + 8 rows (extra rows and columns must be ignored)."""
+    m = n + 1
+    rng = np.random.default_rng(seed)
+    gi, gj = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+    nodes2d = np.stack([gi.astype(np.float64), gj.astype(np.float64)], -1)
     interior = (gi > 0) & (gi < n) & (gj > 0) & (gj < n)
-    nodes2d[interior] += rng.uniform(-0.12, 0.12, size=(interior.sum(), 2))
+    nodes2d[interior] += rng.uniform(-amp / 2, amp / 2,
+                                     size=(interior.sum(), 2))
     nodes2d /= n
-
-    # coordinate planes with padding rows/lanes (junk beyond the grid)
-    W = 128  # lane-padded columns >= n + 1
-    X = np.full((n + 8, W), 7.0)
-    Y = np.full((n + 8, W), 7.0)
-    X[:mref, :mref] = nodes2d[..., 0]
-    Y[:mref, :mref] = nodes2d[..., 1]
-    planes = p1_offdiag_planes_from_coords(
-        jnp.asarray(X), jnp.asarray(Y), n
-    )
-    G_new = stencil_from_offdiag_planes(planes, n)
-
-    # reference: edge kernel + slice-add conversion on the same mesh
-    ij = np.arange(n * n)
-    i, j = ij // n, ij % n
-    a = i * mref + j
-    b = a + mref
-    cells = np.concatenate(
-        [np.stack([a, b, a + 1], 1), np.stack([b, b + 1, a + 1], 1)], axis=0
-    )
-    flat = nodes2d.reshape(-1, 2)
-    p = flat[cells]
-    ev = np.stack(
-        [p[:, 1, 0] - p[:, 0, 0], p[:, 1, 1] - p[:, 0, 1],
-         p[:, 2, 0] - p[:, 0, 0], p[:, 2, 1] - p[:, 0, 1]]
-    )
-    C = cells.shape[0]
-    pad = (-C) % (128 * EDGE_TILE_S)
-    fill = np.tile(np.array([[1.0], [0.0], [0.0], [1.0]]), (1, pad))
-    ev = jnp.asarray(np.concatenate([ev, fill], axis=1).reshape(4, -1, 128))
-    G_ref = p1_grid_stencil(p1_stiffness_edges(ev), n)
-
-    assert G_new.offsets2d == G_ref.offsets2d
-    np.testing.assert_allclose(
-        np.asarray(G_new.data), np.asarray(G_ref.data), rtol=0, atol=1e-12
-    )
+    W = pad_to or m
+    X = np.full((n + 8, W), 3.0)
+    Y = np.full((n + 8, W), 3.0)
+    X[:m, :m] = nodes2d[..., 0]
+    Y[:m, :m] = nodes2d[..., 1]
+    return nodes2d, X, Y
 
 
 def test_stencil_from_coords_matches_full_path():
-    """Fused coords->stencil path (interpret math on CPU) == edge-kernel +
-    slice-add conversion, perturbed geometry."""
+    """Coords->stencil assembly == closed-form packed local matrices +
+    slice-add conversion, perturbed geometry (the structured case hides
+    anti-diagonal bugs: its hypotenuse coupling is exactly zero)."""
+    from fdapde_core_tpu.ops.closed_form import p1_stiffness_2d_sym
     from fdapde_core_tpu.ops.grid_assembly import (
         p1_grid_stencil,
         stencil_from_coords,
     )
-    from fdapde_core_tpu.ops.pallas_assembly import (
-        EDGE_TILE_S,
-        p1_stiffness_edges,
-    )
 
     n = 16
     mref = n + 1
-    rng = np.random.default_rng(13)
-    gi, gj = np.meshgrid(np.arange(mref), np.arange(mref), indexing="ij")
-    nodes2d = np.stack([gi.astype(np.float64), gj.astype(np.float64)], -1)
-    interior = (gi > 0) & (gi < n) & (gj > 0) & (gj < n)
-    nodes2d[interior] += rng.uniform(-0.12, 0.12, size=(interior.sum(), 2))
-    nodes2d /= n
-
-    W = 128
-    X = np.full((n + 8, W), 3.0)
-    Y = np.full((n + 8, W), 3.0)
-    X[:mref, :mref] = nodes2d[..., 0]
-    Y[:mref, :mref] = nodes2d[..., 1]
+    nodes2d, X, Y = _criss_cross(n, 0.24, 13, pad_to=128)
     G_new = stencil_from_coords(jnp.asarray(X), jnp.asarray(Y), n)
 
+    # type-A cells first, then type-B (the p1_grid_stencil convention)
     ij = np.arange(n * n)
-    i, j = ij // n, ij % n
-    a = i * mref + j
+    a = (ij // n) * mref + ij % n
     b = a + mref
     cells = np.concatenate(
         [np.stack([a, b, a + 1], 1), np.stack([b, b + 1, a + 1], 1)], axis=0
     )
-    flat = nodes2d.reshape(-1, 2)
-    p = flat[cells]
-    ev = np.stack(
-        [p[:, 1, 0] - p[:, 0, 0], p[:, 1, 1] - p[:, 0, 1],
-         p[:, 2, 0] - p[:, 0, 0], p[:, 2, 1] - p[:, 0, 1]]
-    )
-    C = cells.shape[0]
-    pad = (-C) % (128 * EDGE_TILE_S)
-    fill = np.tile(np.array([[1.0], [0.0], [0.0], [1.0]]), (1, pad))
-    ev = jnp.asarray(np.concatenate([ev, fill], axis=1).reshape(4, -1, 128))
-    G_ref = p1_grid_stencil(p1_stiffness_edges(ev), n)
+    coords = nodes2d.reshape(-1, 2)[cells].reshape(-1, 6).T  # (6, C)
+    G_ref = p1_grid_stencil(p1_stiffness_2d_sym(jnp.asarray(coords)), n)
 
     assert G_new.offsets2d == G_ref.offsets2d
     np.testing.assert_allclose(
         np.asarray(G_new.data), np.asarray(G_ref.data), rtol=0, atol=1e-12
     )
+    k = G_ref.offsets2d.index((-1, 1))
+    assert float(np.abs(np.asarray(G_ref.data[k])).max()) > 1e-3
+
+
+@pytest.mark.parametrize(
+    "n, amp, pad_to",
+    [(4, 0.0, None), (12, 0.2, None), (12, 0.2, 128), (31, 0.1, 128),
+     (40, 0.2, None)],
+)
+def test_stencil_from_coords_matches_coo_assembler(n, amp, pad_to):
+    """Coords->stencil operator == the fem/ COO assembler on the same
+    triangulation, for plain and perturbed geometry and for coordinate
+    planes padded to lane-aligned widths (extra columns ignored)."""
+    from fdapde_core_tpu.geometry.triangulation import Triangulation
+    from fdapde_core_tpu.ops.grid_assembly import stencil_from_coords
+
+    nodes2d, X, Y = _criss_cross(n, amp, n, pad_to=pad_to)
+    base = unit_square_mesh(n)  # node (i, j) = i*(n+1) + j, same cells
+    mesh = Triangulation(nodes2d.reshape(-1, 2), base.cells,
+                         base.boundary_nodes)
+    A = assemble_matrix(FEMSpace(mesh, 1), -fdm.laplacian())
+    G = stencil_from_coords(jnp.asarray(X), jnp.asarray(Y), n)
+    assert G.data.shape == (7, n + 1, n + 1)
+    v = jnp.asarray(np.random.default_rng(1).normal(size=(n + 1) ** 2))
+    np.testing.assert_allclose(np.asarray(G @ v), np.asarray(A @ v),
+                               rtol=0, atol=1e-12 * n * n)

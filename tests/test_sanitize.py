@@ -1,5 +1,5 @@
 """Sanitizer hooks (utils/sanitize.py) and cross-run determinism — SURVEY
-§5.2 obligations for the TPU build."""
+§5.2 obligations for this build."""
 
 import numpy as np
 import jax

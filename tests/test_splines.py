@@ -14,7 +14,7 @@ from fdapde_core_tpu.geometry import Interval
 from fdapde_core_tpu.splines import SplineBasis
 from fdapde_core_tpu.utils.io import read_mtx
 
-from tests.conftest import MTX_DIR
+from tests.conftest import reference_path
 
 TOL = 50 * np.finfo(np.float64).eps
 
@@ -24,7 +24,7 @@ def test_cox_de_boor_definition():
     knots = np.round(np.arange(0, 1.05, 0.1), 10)[:11]
     basis = SplineBasis(knots, 3)
     assert basis.n_basis == 13
-    golden = read_mtx(os.path.join(MTX_DIR, "spline_test_1.mtx"))
+    golden = read_mtx(reference_path("mtx", "spline_test_1.mtx"))
     # reference evaluates x = 0, 0.01, ..., <=1.01 -> 101 points as built by
     # `for (double x = 0; x <= 1.01; x += 0.01)` (in fp this stops at 1.00)
     xs = np.array([0.01 * k for k in range(golden.shape[0])])
@@ -37,7 +37,7 @@ def test_cubic_spline_second_derivative():
     """spline_test.cpp:61-82: second derivatives of all basis functions."""
     knots = np.round(np.arange(0, 1.05, 0.1), 10)[:11]
     basis = SplineBasis(knots, 3)
-    golden = read_mtx(os.path.join(MTX_DIR, "spline_test_2.mtx"))
+    golden = read_mtx(reference_path("mtx", "spline_test_2.mtx"))
     xs = np.array([0.01 * k for k in range(golden.shape[0])])
     vals = basis.eval(xs, deriv=2)
     assert vals.shape[1] == golden.shape[1]
@@ -54,7 +54,7 @@ def test_cubic_spline_reaction_operator():
         interval, fdm.reaction(1.0), order=3, discretization="spline"
     )
     pde.init()
-    golden = read_mtx(os.path.join(MTX_DIR, "spline_test_3.mtx"))
+    golden = read_mtx(reference_path("mtx", "spline_test_3.mtx"))
     got = pde.stiff().toarray()
     assert got.shape == golden.shape
     assert np.abs(got - golden).max() < 1e-12
@@ -67,7 +67,7 @@ def test_cubic_spline_bilaplacian_operator():
         interval, -fdm.bilaplacian(), order=3, discretization="spline"
     )
     pde.init()
-    golden = read_mtx(os.path.join(MTX_DIR, "spline_test_4.mtx"))
+    golden = read_mtx(reference_path("mtx", "spline_test_4.mtx"))
     got = pde.stiff().toarray()
     assert got.shape == golden.shape
     assert np.abs(got - golden).max() < 1e-9

@@ -96,10 +96,12 @@ def test_gauss_legendre():
     assert abs(w[1] - 8 / 9) < 1e-14
 
 
-def test_read_reference_csv(mesh_dir):
+def test_read_reference_csv():
     from fdapde_core_tpu.utils.io import read_csv
 
-    pts = read_csv(f"{mesh_dir}/unit_square/points.csv")
+    from tests.conftest import reference_path
+
+    pts = read_csv(reference_path("mesh", "unit_square", "points.csv"))
     assert pts.shape == (3600, 2)
     assert pts[1, 0] == pytest.approx(0.01694915254237288)
 
